@@ -4,20 +4,50 @@
 
 Phases, each printing one JSON line:
 
-0. device: the card's name and power limit; builds the CUDA kernels.
+0. device: the card's name and power limit; builds the three CUDA kernels
+   (one ``nvcc`` each, started together).
 1. kernel: the proto-mask union kernel against its plain PyTorch version on
    the card, at the main path's shapes (64 images, 160x160 proto, 32
    coefficients, 300 detection slots), proto in bf16 and f32, for four
    keep patterns.
-2. main path: ``ConsensusPredictor.lote`` at full width (YOLO11n-seg, bf16,
-   imgsz 640, GC enhancement, umbral 2, per-plane counts) over 4 synthetic
-   182x218x182 patients, 50 lesion-centred slices per plane (one patient
-   45, padded with out-of-range indices), seeded random weights. Checks
-   that the kernel ran, that detections were kept, that the padded slots
-   wrote nothing and that the result equals the same call with the plain
-   union; then times 3 dispatches after a warm-up (informational).
-3. timing: the kernel and the plain version on the main path's own union
+2. main path (GC): ``ConsensusPredictor.lote`` at full width (YOLO11n-seg,
+   bf16, imgsz 640, GC enhancement, umbral 2, per-plane counts, the plain
+   stem) over 4 synthetic 182x218x182 patients, 50 lesion-centred slices
+   per plane (one patient 45, padded with out-of-range indices), seeded
+   random weights. Checks that the union kernel ran, that detections were
+   kept, that the padded slots wrote nothing and that the result equals the
+   same call with the plain union; then times 3 dispatches after a warm-up
+   (informational).
+3. timing: the union kernel and its plain version on phase 2's union
    inputs (600 images).
+4. clahe_kernel: the CLAHE tile-LUT kernel against its plain version on 64
+   random L images of each plane shape and on one-tile edge cases
+   (constant, two-valued, residual 0, every bin clipped): exactly equal;
+   then ``enhance_for_model(..., "CLAHE")`` with the kernel against the
+   same with the plain LUTs, on the card.
+5. stem_kernel: the fused stem against ``model.0``/``model.1`` (BN
+   statistics perturbed) at 64 images of 640: f32 within 2e-5; bf16 within
+   one bf16 ulp of b1's conv sum carried through BN and SiLU, plus one ulp
+   of the output (``stem.bf16_error_bound``), with the errors also in ulps
+   of the larger of the value and 1.0.
+6. rapido (this slice's path): ``pipeline.rapido.ejecutar_fold_rapido``
+   over an experiment tree in a temporary directory — five synthetic
+   182x218x182 patients in fold 1 (one with 45 slices per plane), their
+   FLAIR/mask NIfTI and GT, stage-1 image names (50 lesion-centred indices
+   per plane), a ``best.pt`` per plane from its own seed — with ``--mejora
+   CLAHE``, YOLO11n-seg, bf16, imgsz 640, umbral 2 and
+   ``TPU_MSLESSEG_PALLAS_STEM=1``: two dispatches of 4 patients, the second
+   the fifth patient repeated. Checks that every volume/JSON pair and
+   nothing else was written, that the CLAHE, stem and union kernels all
+   launched, that NMS kept detections, that the volumes on disk equal a
+   direct ``lote`` of the same groups and the JSONs their counts' metrics.
+7. stem_main_path: phase 6's first group through ``lote`` with the stem
+   off: per-plane and consensus Dice against the stem-on run (the consensus
+   at least 0.99), and the stem kernel against the plain blocks on that
+   group's own inputs (the bf16 bound of phase 5).
+8. timing: the CLAHE kernel against its plain version on phase 6's L
+   images, and the stem at 600 images of 640: the median of plain, kernel,
+   kernel, plain blocks after a warm-up.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -27,9 +57,12 @@ the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -40,13 +73,31 @@ ROOT = Path(__file__).resolve().parent
 VOL_SHAPE = (182, 218, 182)
 PLANES = ("axial", "coronal", "sagital")
 PATIENTS = ("P39", "P18", "P07", "P12")  # the last serves 45 slices per plane
+FOLD_PATIENTS = ("P1", "P2", "P3", "P4", "P5")  # fold 1 of 5; the last serves 45
 N_PER_PLANE = 50
 N_SHORT = 45
 IMGSZ = 640
+EPOCHS = 50
 DEVICE = "cuda:0"
 MAX_DIFF_LINES = 50
 ATOL, RTOL = 1e-4, 1e-5
+STEM_TOL = 2e-5
 NEAR_THRESHOLD = 1e-3
+MIN_DICE = 0.99
+# kernel -> (its CUDA source, the Pallas kernel body it replaces)
+KERNEL_SOURCES = {
+    "mask_union": ("tpu_mslesseg_torch/csrc/mask_union.cu",
+                   "tpu_mslesseg/infer/mask_union_pallas.py:88"),
+    "clahe_tile_lut": ("tpu_mslesseg_torch/csrc/clahe_tile_lut.cu",
+                       "tpu_mslesseg/preproc/clahe_pallas.py:27"),
+    "stem": ("tpu_mslesseg_torch/csrc/stem.cu", "tpu_mslesseg/model/stem_pallas.py:149"),
+}
+KERNELS = tuple(KERNEL_SOURCES)
+# the serving model of phase 6, as a user's environment would set it
+SERVING_ENV = {
+    "TPU_MSLESSEG_PALLAS_STEM": "1", "TPU_MSLESSEG_DTYPE": "bfloat16",
+    "TPU_MSLESSEG_SCALE": "n", "TPU_MSLESSEG_IMGSZ": str(IMGSZ),
+}
 
 
 def emit(obj) -> None:
@@ -70,19 +121,25 @@ def patient_volume(pid: str):
     return vol, mask
 
 
+def plane_indices(geometry, gt, plane: str, n: int):
+    """`n` lesion-centred slice indices, padded with neighbours (bench.py's
+    recipe)."""
+    axis = geometry.plane_axis(plane)
+    other = tuple(i for i in range(3) if i != axis)
+    has = np.nonzero(np.any(gt > 0, axis=other))[0]
+    lo = max(0, len(has) // 2 - n // 2)
+    idx = has[lo : lo + n]
+    if len(idx) < n:
+        extra = np.setdiff1d(np.arange(gt.shape[axis]), idx)[: n - len(idx)]
+        idx = np.concatenate([idx, extra])
+    return idx
+
+
 def plane_work(geometry, torch, vol, gt, n: int):
-    """Lesion-centred slice indices and raw slices per plane, padded with
-    neighbours to `n` (bench.py's recipe)."""
+    """Per plane: lesion-centred slice indices and the raw slices."""
     work = {}
     for plane in PLANES:
-        axis = geometry.plane_axis(plane)
-        other = tuple(i for i in range(3) if i != axis)
-        has = np.nonzero(np.any(gt > 0, axis=other))[0]
-        lo = max(0, len(has) // 2 - n // 2)
-        idx = has[lo : lo + n]
-        if len(idx) < n:
-            extra = np.setdiff1d(np.arange(gt.shape[axis]), idx)[: n - len(idx)]
-            idx = np.concatenate([idx, extra])
+        idx = plane_indices(geometry, gt, plane, n)
         slices = geometry.extract_slices(
             torch.from_numpy(vol.astype(np.float32)), plane, idx
         ).numpy()
@@ -114,16 +171,20 @@ def synthetic_batch(geometry, torch):
 
 
 class Recorder:
-    """Passes the union through to `fn` and keeps the last call's inputs
-    and output (for the kept-detection count and the timing phase)."""
+    """Passes the union through to `fn`, keeps the last call's inputs and
+    output (for the timing phase) and counts kept detections over calls."""
 
     def __init__(self, fn):
         self.fn = fn
         self.last = None
+        self.kept = 0
+        self.images = 0
 
     def __call__(self, proto, mcoef, boxes, keep, stride):
         out = self.fn(proto, mcoef, boxes, keep, stride)
         self.last = (proto, mcoef, boxes, keep, stride, out)
+        self.kept = self.kept + keep.sum()  # on the device: no sync per call
+        self.images += keep.shape[0]
         return out
 
 
@@ -157,6 +218,101 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_pair(torch, run_k, run_p, reps_k: int, reps_p: int):
+    """Kernel and plain ms: one warm-up each, then blocks in the order
+    plain, kernel, kernel, plain; returns (kernel blocks, plain blocks)."""
+    for fn in (run_k, run_p):
+        fn()
+    k_ms, p_ms = [], []
+    for fn, sink in ((run_p, p_ms), (run_k, k_ms), (run_k, k_ms), (run_p, p_ms)):
+        sink.append(cuda_ms(torch, fn, reps_k if fn is run_k else reps_p))
+    return k_ms, p_ms
+
+
+@contextlib.contextmanager
+def switched(module, name, value):
+    """`module.name` set to `value` for the duration."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def zero_launches(*modules):
+    for m in modules:
+        m.LAUNCHES = 0
+
+
+def perturbed_stem(torch, sd, seed: int):
+    """`sd` with the stem's BN statistics away from identity (with identity
+    statistics silu(bn(0)) == 0 would hide a padding fault)."""
+    sd = dict(sd)
+    gen = torch.Generator().manual_seed(seed)
+    for b in ("model.0", "model.1"):
+        n = sd[f"{b}.bn.weight"].numel()
+        sd[f"{b}.bn.running_mean"] = torch.randn(n, generator=gen) * 0.2 + 0.3
+        sd[f"{b}.bn.running_var"] = torch.rand(n, generator=gen) * 1.5 + 0.5
+        sd[f"{b}.bn.bias"] = torch.randn(n, generator=gen) * 0.3 + 0.1
+    return sd
+
+
+def stem_errors(torch, stem, model, w, x, got, want) -> dict:
+    """Max abs error, the share of differing elements and, in bf16, the
+    largest error in bf16 ulps of max(|x|, 1) and over the stem's bf16
+    bound (``stem.bf16_error_bound``); raises beyond the bound (f32:
+    atol/rtol 2e-5)."""
+    g, wf = got.float(), want.float()
+    d = (g - wf).abs()
+    out = {"max_abs_err": float(d.max()), "share_differing": float((d > 0).float().mean())}
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, wf, atol=STEM_TOL, rtol=STEM_TOL)
+        return out
+    ulp = torch.exp2(torch.floor(torch.log2(wf.abs().clamp(min=1.0))) - 7)
+    out["max_ulp_of_max_x_1"] = float((d / ulp).max())
+    out["share_beyond_1_ulp"] = float((d > ulp).float().mean())
+    del ulp
+    out["max_err_over_bound"] = float((d / stem.bf16_error_bound(model, w, x, want)).max())
+    if out["max_err_over_bound"] > 1.0:
+        raise AssertionError(f"stem bf16: {out} beyond the bound")
+    return out
+
+
+def dice(a, b) -> float:
+    a, b = a > 0, b > 0
+    denom = int(a.sum()) + int(b.sum())
+    return 1.0 if denom == 0 else 2.0 * int((a & b).sum()) / denom
+
+
+def write_experiment(root: Path, geometry, torch, modelo_cls, save_checkpoint,
+                     config_train, nifti, create_model, init_variables, strides):
+    """The fold-1 experiment tree of phase 6 under `root`; returns the
+    CLAHE axial experiment's Modelo."""
+    ds = root / "MSLesSeg-Dataset" / "train"
+    modelo = {p: modelo_cls(plano=p, num_cortes=N_PER_PLANE, modalidad=["FLAIR"],
+                            k_folds=5, mejora="CLAHE") for p in PLANES}
+    for pid in FOLD_PATIENTS:
+        vol, gt = patient_volume(pid)
+        nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
+        nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
+        nifti.save(gt.astype(np.uint8), np.eye(4), root / "GT" / "train" / pid / f"{pid}_MASK.nii.gz")
+        n = N_SHORT if pid == FOLD_PATIENTS[-1] else N_PER_PLANE
+        for p in PLANES:
+            images = root / "datasets" / modelo[p].base_path / "fold1" / pid / p / "images"
+            images.mkdir(parents=True)
+            for i in plane_indices(geometry, gt, p, n):  # stage 1's file names
+                (images / f"{pid}_FLAIR_{i}.png").touch()
+    model, _ = create_model(nc=1, scale="n")
+    for k, p in enumerate(PLANES):  # one seed per plane: the per-plane forward
+        sd = init_variables(model, seed=10 + k)
+        for i in range(len(strides)):  # no class prior: NMS keeps detections
+            sd[f"model.23.cv3.{i}.2.bias"].zero_()
+        cfg = config_train(modelo=modelo[p], epochs=EPOCHS, fold_test=1, root=root)
+        save_checkpoint(cfg.best_ckpt, sd)
+    return modelo["axial"]
+
+
 def main() -> int:
     import torch
 
@@ -168,33 +324,49 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    os.environ.update(SERVING_ENV)  # read when the port's modules import
     sys.path.insert(0, str(ROOT))
     from tpu_mslesseg_torch import _build
     from tpu_mslesseg_torch.core import geometry
+    from tpu_mslesseg_torch.evalx import metrics as mx
     from tpu_mslesseg_torch.infer import mask_union as mu
     from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
-    from tpu_mslesseg_torch.model.yolo11 import STRIDES, create_model, init_variables
+    from tpu_mslesseg_torch.io import nifti
+    from tpu_mslesseg_torch.model import stem
+    from tpu_mslesseg_torch.model.yolo11 import (
+        STRIDES, create_model, create_model_from_env, fold_gray_stem, init_variables,
+    )
+    from tpu_mslesseg_torch.pipeline import rapido
+    from tpu_mslesseg_torch.pipeline.modelo import Modelo
+    from tpu_mslesseg_torch.pipeline.paciente import Paciente
+    from tpu_mslesseg_torch.pipeline.paths import ConfigTrain
+    from tpu_mslesseg_torch.preproc import clahe, enhance
+    from tpu_mslesseg_torch.train.checkpoint import save_checkpoint
 
     dev = torch.device(DEVICE)
     # full f32 in the plain versions' matmuls and convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_label(torch)
+    kmods = {"mask_union": mu, "clahe_tile_lut": clahe, "stem": stem}
+    max_err = dict.fromkeys(KERNELS, 0.0)
 
     # ---- phase 0: device and build -------------------------------------
     t0 = time.perf_counter()
-    _build.load("mask_union")
+    _build.load_all(KERNELS)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_logs.get("mask_union", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {
+        k: [ln.strip() for ln in _build.build_logs.get(k, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+        for k in KERNELS
+    }
     emit({"phase": "device", **card, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "tf32_matmul": False, "tf32_cudnn": False,
           "build_s": round(build_s, 3), "ptxas": ptxas})
 
-    # ---- phase 1: kernel vs plain at the main path's shapes -------------
+    # ---- phase 1: union kernel vs plain at the main path's shapes ---------
     gen = torch.Generator().manual_seed(0)
-    max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for pattern in ("random", "all_dead", "scattered", "off_map"):
             args = random_case(torch, gen, 64, 300, dtype, pattern, dev)
@@ -205,12 +377,12 @@ def main() -> int:
             torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
             if pattern == "all_dead" and not bool((got == mu._NEG).all()):
                 raise AssertionError("all-dead slots must give exactly -1e4")
-            max_err = max(max_err, err)
+            max_err["mask_union"] = max(max_err["mask_union"], err)
             emit({"phase": "kernel", "dtype": str(dtype).removeprefix("torch."),
                   "pattern": pattern, "n": 64, "k": 300, "max_abs_err": err,
                   "atol": ATOL, "rtol": RTOL})
 
-    # ---- phase 2: the main path -----------------------------------------
+    # ---- phase 2: the GC main path (plain stem) ----------------------------
     model, _ = create_model(nc=1, scale="n", dtype=torch.bfloat16)
     variables = init_variables(model, seed=0)
     for i in range(len(STRIDES)):  # no class prior: NMS keeps detections
@@ -222,10 +394,11 @@ def main() -> int:
     kw = dict(mejora="GC", imgsz=IMGSZ, umbral=2, per_plane_counts=True, device=dev)
     kernel_union = Recorder(mu.mask_union_logits_batch)
     plain_union = Recorder(mu.mask_union_logits_ref)
-    cp = ConsensusPredictor(model, variables, VOL_SHAPE, mask_union=kernel_union, **kw)
-    cp_plain = ConsensusPredictor(model, variables, VOL_SHAPE, mask_union=plain_union, **kw)
+    with switched(stem, "ENABLED", False):
+        cp = ConsensusPredictor(model, variables, VOL_SHAPE, mask_union=kernel_union, **kw)
+        cp_plain = ConsensusPredictor(model, variables, VOL_SHAPE, mask_union=plain_union, **kw)
 
-    mu.LAUNCHES = 0
+    zero_launches(*kmods.values())
     counts, cons, vols = cp.lote(slices, idx, gts)
     torch.cuda.synchronize()
     launches = mu.LAUNCHES
@@ -303,7 +476,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if rep:
             times.append(time.perf_counter() - t0)
-    emit({"phase": "main_path", "kernel_launches": launches,
+    emit({"phase": "main_path", "mejora": "GC", "kernel_launches": launches,
           "kept_per_slice": kept_per_slice, "slices_dispatched": int(keep.shape[0]),
           "real_slices": real_slices, "voxels_differing_from_plain": n_diff,
           "padded_slots_clean": True, "metrics_patient0": metrics,
@@ -311,33 +484,270 @@ def main() -> int:
                             "slices_per_s": real_slices / float(np.median(times)),
                             **card}})
 
-    # ---- phase 3: kernel vs plain time on the main path's union inputs -----
+    # ---- phase 3: union kernel vs plain time on phase 2's inputs ----------
     proto, mcoef, boxes, keep, stride, _ = kernel_union.last
     run_k = lambda: mu.mask_union_logits_batch(proto, mcoef, boxes, keep, stride)
     run_p = lambda: mu.mask_union_logits_ref(proto, mcoef, boxes, keep, stride)
     got, want = run_k(), run_p()
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
-    max_err = max(max_err, float((got - want).abs().max()))
-    for fn in (run_k, run_p):  # warm-up
-        fn()
-    k_ms, p_ms = [], []
-    for fn, sink in ((run_p, p_ms), (run_k, k_ms), (run_k, k_ms), (run_p, p_ms)):
-        sink.append(cuda_ms(torch, fn, 10 if fn is run_k else 3))
-    ms, plain_ms = float(np.median(k_ms)), float(np.median(p_ms))
-    emit({"phase": "timing", "n": int(proto.shape[0]), "k": int(mcoef.shape[1]),
-          "proto_dtype": str(proto.dtype).removeprefix("torch."),
+    max_err["mask_union"] = max(max_err["mask_union"], float((got - want).abs().max()))
+    k_ms, p_ms = timed_pair(torch, run_k, run_p, 10, 3)
+    timing = {"mask_union": (float(np.median(k_ms)), float(np.median(p_ms)))}
+    emit({"phase": "timing", "kernel": "mask_union", "n": int(proto.shape[0]),
+          "k": int(mcoef.shape[1]), "proto_dtype": str(proto.dtype).removeprefix("torch."),
           "kept_per_image": float(keep.sum()) / keep.shape[0],
-          "kernel_ms": k_ms, "plain_ms": p_ms,
-          **card})
+          "kernel_ms": k_ms, "plain_ms": p_ms, **card})
+    del cp, cp_plain, kernel_union, plain_union, proto, mcoef, boxes, keep, got, want
 
-    emit({"kernels": [{
-        "name": "mask_union", "route": "cuda",
-        "source": "tpu_mslesseg_torch/csrc/mask_union.cu",
-        "replaces": "tpu_mslesseg/infer/mask_union_pallas.py:88",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
-    }]})
+    # ---- phase 4: CLAHE tile-LUT kernel vs plain ----------------------------
+    lut_cases = 0
+    for hw in [(182, 218), (182, 182), (218, 182)]:
+        imgs = torch.randint(0, 256, (64,) + hw, generator=gen, dtype=torch.uint8).to(dev)
+        cases = [(imgs, 2.0, 8)]
+        th, tw, area, limit = clahe.tile_geometry(*hw)
+        big = 512 + limit
+        edge = [
+            (torch.full((area,), 131), 2.0),
+            (torch.where(torch.rand(area, generator=gen) < 0.3, 17, 240), 2.0),
+            (torch.cat([torch.full((big,), 60), 61 + torch.arange(area - big) % 190]), 2.0),
+            (torch.cat([torch.arange(256), torch.arange(256),
+                        torch.randint(0, 256, (area - 512,), generator=gen)]), 0.1),
+        ]
+        for pix, clip in edge:  # one-tile images: the tile is the image
+            tile = pix[torch.randperm(area, generator=gen)].reshape(1, th, tw)
+            cases.append((tile.to(dev, torch.uint8), clip, 1))
+        for x, clip, tiles in cases:
+            got = clahe.clahe_tile_luts(x, clip, tiles, tiles)
+            want = clahe.clahe_tile_luts_ref(x, clip, tiles, tiles)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"CLAHE LUTs differ from the plain version at {hw}")
+            lut_cases += 1
+        raw = imgs.to(torch.float32) * 3.7 - 40.0  # the same images as slices
+        got = enhance.enhance_for_model(raw, "CLAHE")
+        with switched(clahe, "clahe_tile_luts", clahe.clahe_tile_luts_ref):
+            want = enhance.enhance_for_model(raw, "CLAHE")
+        torch.cuda.synchronize()
+        n_px = int((got != want).sum())
+        if n_px:
+            raise AssertionError(f"CLAHE enhancement differs from the plain version ({n_px} px)")
+        emit({"phase": "clahe_kernel", "hw": list(hw), "images": 64,
+              "tile": [th, tw], "limit": limit, "edge_tiles": len(edge),
+              "max_abs_err": 0.0, "enhance_for_model_px_differing": n_px})
+
+    # ---- phase 5: stem kernel vs model.0/model.1 ---------------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        smodel, _ = create_model(nc=1, scale="n", dtype=dtype)
+        sd = perturbed_stem(torch, fold_gray_stem(init_variables(smodel, seed=3)), 4)
+        w = stem.stem_weights({k: v.to(dev) for k, v in sd.items()})
+        x = torch.rand((64, IMGSZ, IMGSZ), generator=gen).to(dev, dtype)
+        got = stem.stem_apply(smodel, w, x)
+        want = stem.stem_reference(smodel, w, x)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (64, 32, IMGSZ // 4, IMGSZ // 4) or got.dtype != dtype:
+            raise AssertionError(f"stem output {tuple(got.shape)} {got.dtype}")
+        if not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("stem output is not channels-last")
+        errs = stem_errors(torch, stem, smodel, w, x, got, want)
+        max_err["stem"] = max(max_err["stem"], errs["max_abs_err"])
+        emit({"phase": "stem_kernel", "dtype": str(dtype).removeprefix("torch."), "m": 64,
+              "imgsz": IMGSZ, **errs, "bound": "atol=rtol=2e-5" if dtype == torch.float32
+              else "1 bf16 ulp of the conv sum through BN and SiLU, + 1 of the output"})
+        del got, want, x
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: rapido, the slice's path ------------------------------
+    if not stem.ENABLED:
+        raise AssertionError("TPU_MSLESSEG_PALLAS_STEM=1 did not switch the stem on")
+    smodel, _, imgsz = create_model_from_env()
+    if (smodel.dtype, smodel.cfg.scale, imgsz) != (torch.bfloat16, "n", IMGSZ):
+        raise AssertionError("the serving model is not YOLO11n-seg bf16 at 640")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        modelo = write_experiment(root, geometry, torch, Modelo, save_checkpoint, ConfigTrain,
+                                  nifti, create_model, init_variables, STRIDES)
+        setup_s = time.perf_counter() - t0
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            zero_launches(*kmods.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = rapido.ejecutar_fold_rapido(modelo, epochs=EPOCHS, k_folds=5, fold_test=1,
+                                             umbral=2, device=dev)
+            torch.cuda.synchronize()
+            fold_s = time.perf_counter() - t0
+            fold_launches = {k: m.LAUNCHES for k, m in kmods.items()}
+            if ok is not True:
+                raise AssertionError("ejecutar_fold_rapido did not serve the fold")
+            for k, n in fold_launches.items():
+                if n < 1:
+                    raise AssertionError(f"the rapido fold did not launch the {k} kernel")
+
+            # every (volume, JSON) pair and nothing else
+            exp = f"{modelo.base_path}_{EPOCHS}epochs"
+            kinds = PLANES + ("consenso",)
+            expected = {
+                Path(d) / exp / "fold1" / pid / f"{pid}_{k}{suffix}"
+                for pid in FOLD_PATIENTS for k in kinds
+                for d, suffix in (("pred_vols", ".nii.gz"), ("results", "_results.json"))
+            }
+            written = {
+                p.relative_to(root) for d in ("pred_vols", "results")
+                for p in (root / d).rglob("*") if p.is_file()
+            }
+            if written != expected:
+                raise AssertionError(
+                    f"rapido wrote {sorted(map(str, written - expected))}, "
+                    f"missed {sorted(map(str, expected - written))}"
+                )
+
+            # a direct lote of the same groups with the same predictor set-up
+            cache = {}
+            payloads = [
+                rapido._recolectar_paciente(
+                    modelo, Paciente(id=pid, plano="axial", modalidad=["FLAIR"],
+                                     mejora="CLAHE", dataset_dir="MSLesSeg-Dataset/train"),
+                    EPOCHS, 5, 2, cache)
+                for pid in FOLD_PATIENTS
+            ]
+            union = Recorder(mu.mask_union_logits_batch)
+            cp = ConsensusPredictor(
+                smodel, payloads[0]["variables"], VOL_SHAPE, mejora="CLAHE", imgsz=imgsz,
+                umbral=2, planes=PLANES, per_plane_counts=True, device=dev, mask_union=union,
+            )
+            groups = [payloads[:4], [payloads[4]] * 4]
+            lote_s, direct = [], []
+            for chunk in groups:
+                arrays = rapido._lote_arrays(chunk, PLANES, VOL_SHAPE)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cp.lote(*arrays)
+                torch.cuda.synchronize()
+                lote_s.append(time.perf_counter() - t0)
+                direct.append((chunk, arrays, out))
+            kept_per_slice = float(union.kept) / max(union.images, 1)
+            if not kept_per_slice > 0:
+                raise AssertionError("NMS kept no detection on the rapido path")
+            n_checked = 0
+            for chunk, _, (counts, cons, vols) in direct:
+                real = chunk if chunk[0] is not chunk[-1] else chunk[:1]
+                for i, payload in enumerate(real):
+                    pid = payload["pid"]
+                    for k in kinds:
+                        vol = cons[i] if k == "consenso" else vols[k][i]
+                        disk = nifti.load(root / "pred_vols" / exp / "fold1" / pid
+                                          / f"{pid}_{k}.nii.gz").get_fdata()
+                        if not np.array_equal(disk, vol.cpu().numpy().astype(np.float64)):
+                            raise AssertionError(f"{pid}/{k}: volume on disk != direct lote")
+                        met = json.loads((root / "results" / exp / "fold1" / pid
+                                          / f"{pid}_{k}_results.json").read_text())
+                        if json.dumps(met) != json.dumps(mx.metrics_from_counts(counts[k][i])):
+                            raise AssertionError(f"{pid}/{k}: JSON != metrics of the counts")
+                        n_checked += 1
+            real_fold = len(PLANES) * ((len(FOLD_PATIENTS) - 1) * N_PER_PLANE + N_SHORT)
+            emit({"phase": "rapido", "mejora": "CLAHE", "patients": len(FOLD_PATIENTS),
+                  "dispatches": len(groups), "lote_size": rapido.LOTE_PACIENTES,
+                  "launches": fold_launches, "kept_per_slice": kept_per_slice,
+                  "files_written": len(written), "pairs_checked_against_lote": n_checked,
+                  "informational": {"setup_s": setup_s, "fold_s": fold_s, "lote_s": lote_s,
+                                    "real_slices": real_fold,
+                                    "fold_slices_per_s": real_fold / fold_s,
+                                    "lote_slices_per_s": real_fold / sum(lote_s), **card}})
+
+            # ---- phase 7: stem off vs stem on, same group -------------------
+            rec_on, rec_off = Recorder(mu.mask_union_logits_batch), Recorder(mu.mask_union_logits_batch)
+            with switched(stem, "ENABLED", False):
+                cp_off = ConsensusPredictor(
+                    smodel, payloads[0]["variables"], VOL_SHAPE, mejora="CLAHE",
+                    imgsz=imgsz, umbral=2, planes=PLANES, per_plane_counts=True, device=dev,
+                    mask_union=rec_off,
+                )
+            cp.mask_union = rec_on
+            stem_before = stem.LAUNCHES
+            _, on_arrays, (_, first_cons, _) = direct[0]
+            _, on_cons, on_vols = cp.lote(*on_arrays)  # again: run to run the same?
+            launched = stem.LAUNCHES - stem_before
+            _, off_cons, off_vols = cp_off.lote(*on_arrays)
+            torch.cuda.synchronize()
+            if stem.LAUNCHES - stem_before != launched or launched < 1:
+                raise AssertionError("the stem ran in the stem-off predictor, or not in the other")
+            dices, differing = {}, {}
+            for k in kinds:
+                a = on_cons if k == "consenso" else on_vols[k]
+                b = off_cons if k == "consenso" else off_vols[k]
+                dices[k] = dice(a, b)
+                differing[k] = int((a != b).sum())
+            # the kernel against the plain blocks on this group's own inputs
+            stem_inputs = {}
+            for p in PLANES:
+                sl = torch.as_tensor(on_arrays[0][p]["FLAIR"], device=dev)
+                u8 = enhance.enhance_for_model(sl.reshape((-1,) + sl.shape[2:]), "CLAHE")
+                png = geometry.to_png_space_batch(u8).to(torch.float32) / 255.0
+                x = cp.lb[p].apply(png).to(smodel.dtype)
+                got = stem.stem_apply(smodel, cp._stem_w[p], x)
+                want = stem.stem_reference(smodel, cp._stem_w[p], x)
+                stem_inputs[p] = stem_errors(torch, stem, smodel, cp._stem_w[p], x, got, want)
+                max_err["stem"] = max(max_err["stem"], stem_inputs[p]["max_abs_err"])
+            keep_on, keep_off = rec_on.last[3], rec_off.last[3]  # the last plane's NMS
+            emit({"phase": "stem_main_path", "patients": 4, "dice_stem_on_vs_off": dices,
+                  "voxels_differing": differing, "min_consensus_dice": MIN_DICE,
+                  "stem_on_repeat_equal": bool(torch.equal(on_cons, first_cons)),
+                  "stem_vs_plain_on_these_inputs": stem_inputs,
+                  f"{PLANES[-1]}_slices_whose_nms_keep_differs":
+                      int((keep_on != keep_off).any(dim=1).sum()),
+                  f"{PLANES[-1]}_kept_on_off": [int(keep_on.sum()), int(keep_off.sum())]})
+            if dices["consenso"] < MIN_DICE:
+                raise AssertionError(f"stem on vs off: consensus Dice {dices} below {MIN_DICE}")
+            l_imgs = {}  # phase 8's CLAHE inputs: the group's L images per plane
+            for p in PLANES:
+                sl = torch.as_tensor(on_arrays[0][p]["FLAIR"], device=dev)
+                u8 = enhance.normalize_to_uint8(sl.reshape((-1,) + sl.shape[2:]))
+                l_imgs[p] = torch.from_numpy(enhance._LAB_FWD).to(dev)[u8.long()]
+            del cp, cp_off, direct, payloads, cache, on_arrays, on_cons, on_vols
+            del off_cons, off_vols, first_cons, rec_on, rec_off, got, want, x
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: CLAHE and stem, kernel vs plain time -----------------------
+    clahe_k, clahe_p = 0.0, 0.0
+    for p, x in l_imgs.items():
+        got, want = clahe.clahe_tile_luts(x), clahe.clahe_tile_luts_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{p}: CLAHE LUTs differ on the main path's images")
+        k_ms, p_ms = timed_pair(torch, lambda: clahe.clahe_tile_luts(x),
+                                lambda: clahe.clahe_tile_luts_ref(x), 20, 5)
+        clahe_k += float(np.median(k_ms))
+        clahe_p += float(np.median(p_ms))
+        emit({"phase": "timing", "kernel": "clahe_tile_lut", "plane": p,
+              "n": int(x.shape[0]), "hw": list(x.shape[1:]),
+              "kernel_ms": k_ms, "plain_ms": p_ms, **card})
+    timing["clahe_tile_lut"] = (clahe_k, clahe_p)
+
+    sd = perturbed_stem(torch, fold_gray_stem(init_variables(smodel, seed=5)), 6)
+    w = stem.stem_weights({k: v.to(dev) for k, v in sd.items()})
+    x = torch.rand((600, IMGSZ, IMGSZ), generator=gen).to(dev, torch.bfloat16)
+    got, want = stem.stem_apply(smodel, w, x), stem.stem_reference(smodel, w, x)
+    torch.cuda.synchronize()
+    errs = stem_errors(torch, stem, smodel, w, x, got, want)
+    max_err["stem"] = max(max_err["stem"], errs["max_abs_err"])
+    del got, want
+    k_ms, p_ms = timed_pair(torch, lambda: stem.stem_apply(smodel, w, x),
+                            lambda: stem.stem_reference(smodel, w, x), 5, 3)
+    timing["stem"] = (float(np.median(k_ms)), float(np.median(p_ms)))
+    emit({"phase": "timing", "kernel": "stem", "m": 600, "imgsz": IMGSZ, "dtype": "bfloat16",
+          **errs, "kernel_ms": k_ms, "plain_ms": p_ms, **card})
+
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": fold_launches[name], "max_abs_err": max_err[name],
+         "ms": timing[name][0], "plain_ms": timing[name][1]}
+        for name, (source, replaces) in KERNEL_SOURCES.items()
+    ]})
     print(card["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["name"],
                                  "count": torch.cuda.device_count()}})

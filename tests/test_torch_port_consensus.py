@@ -232,7 +232,8 @@ def _assert_matches_jax(jout, tout, logits_fn, gts):
 
 
 @pytest.mark.parametrize(
-    "mejora,weights", [("GC", "shared"), (None, "shared"), ("GC", "per_plane")]
+    "mejora,weights",
+    [("GC", "shared"), (None, "shared"), ("GC", "per_plane"), ("CLAHE", "per_plane")],
 )
 def test_consensus_call_matches_jax(case, mejora, weights):
     pat = case["pats"][0]
@@ -253,6 +254,14 @@ def test_consensus_call_matches_jax(case, mejora, weights):
 
 @pytest.mark.parametrize("weights", ["shared", "per_plane"])
 def test_consensus_lote_with_padded_group_matches_jax(case, weights):
+    _check_padded_lote(case, "GC", weights)
+
+
+def test_consensus_lote_clahe_per_plane_matches_jax(case):
+    _check_padded_lote(case, "CLAHE", "per_plane")
+
+
+def _check_padded_lote(case, mejora, weights):
     """Two patients in one call; the second serves N-1 slices, padded to N
     with a blank slice and the out-of-range index max(vol_shape)."""
     a, b = case["pats"]
@@ -263,7 +272,7 @@ def test_consensus_lote_with_padded_group_matches_jax(case, weights):
     }
     idx = {p: np.stack([ids, np.concatenate([ids[:-1], [OOB]])]) for p in PLANES}
     gts = np.stack([case["gt"], case["gt"]])
-    kw = dict(mejora="GC", imgsz=IMGSZ, umbral=2, per_plane_counts=True)
+    kw = dict(mejora=mejora, imgsz=IMGSZ, umbral=2, per_plane_counts=True)
     jcp = JConsensus(case["jmodel"], case["jvars"][weights], VOL_SHAPE, **kw)
     tcp = TConsensus(case["tmodel"], case["tvars"][weights], VOL_SHAPE, **kw)
     jout = jcp.lote({p: jnp.asarray(s) for p, s in slices.items()}, idx, jnp.asarray(gts))

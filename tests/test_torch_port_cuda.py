@@ -6,14 +6,23 @@ it without the repository's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py -q
 
-Tolerance: atol 1e-4, rtol 1e-5 (the kernel sums the 32 products in
-another order than the plain version's matmul, which runs in full f32).
+Tolerances: the mask union atol 1e-4, rtol 1e-5 (the kernel sums the 32
+products in another order than the plain version's matmul, which runs in
+full f32); the CLAHE tile LUTs exactly (integer histograms, the same f32
+scale, round half to even); the stem in f32 atol and rtol 2e-5 (cuDNN's
+TF32 off), in bf16 ``stem.bf16_error_bound``: one bf16 ulp of b1's conv
+sum carried through BN and SiLU, plus one ulp of the output (the two sum in
+different orders, so a conv sum may round one ulp apart, and where BN's
+running mean cancels most of it that ulp exceeds the output's).
 """
 
 import pytest
 import torch
 
 from tpu_mslesseg_torch.infer import mask_union as mu
+from tpu_mslesseg_torch.model import stem
+from tpu_mslesseg_torch.model.yolo11 import create_model, fold_gray_stem, init_variables
+from tpu_mslesseg_torch.preproc import clahe, enhance
 
 pytestmark = pytest.mark.gpu
 
@@ -23,6 +32,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -80,3 +90,120 @@ def test_wrapper_checks_its_inputs(cuda):
         mu.mask_union_logits_batch(proto, coef, boxes.cpu(), keep)
     with pytest.raises(TypeError):
         mu.mask_union_logits_batch(proto, coef, boxes, keep.int())
+
+
+# --------------------------------------------------------------------------
+# CLAHE tile LUTs
+# --------------------------------------------------------------------------
+
+
+def _edge_tiles(th, tw, gen):
+    """One-tile images [k, th, tw] of the edge cases, and each one's clip
+    limit: constant, two-valued, clipped excess of exactly 512 (residual
+    0), every bin above its limit (clip 0.1), and random."""
+    area = th * tw
+    limit = max(int(2.0 * area / 256), 1)
+    big = 512 + limit
+    cases = [
+        (torch.full((area,), 131), 2.0),
+        (torch.where(torch.rand(area, generator=gen) < 0.3, 17, 240), 2.0),
+        (torch.cat([torch.full((big,), 60), 61 + torch.arange(area - big) % 190]), 2.0),
+        (torch.cat([torch.arange(256), torch.arange(256),
+                    torch.randint(0, 256, (area - 512,), generator=gen)]), 0.1),
+        (torch.randint(0, 256, (area,), generator=gen), 2.0),
+    ]
+    return [(pix[torch.randperm(area, generator=gen)].reshape(1, th, tw).to(torch.uint8), c)
+            for pix, c in cases]
+
+
+@pytest.mark.parametrize("hw", [(182, 218), (182, 182), (218, 182), (24, 28)])
+def test_clahe_kernel_equals_plain(cuda, hw):
+    gen = torch.Generator().manual_seed(hw[0] * hw[1])
+    imgs = torch.randint(0, 256, (8,) + hw, generator=gen, dtype=torch.uint8).to(cuda)
+    before = clahe.LAUNCHES
+    got = clahe.clahe_tile_luts(imgs)
+    torch.cuda.synchronize()
+    assert clahe.LAUNCHES == before + 1
+    assert got.shape == (8, 64, 256) and got.dtype == torch.float32
+    assert torch.equal(got, clahe.clahe_tile_luts_ref(imgs))
+    th, tw, area, limit = clahe.tile_geometry(*hw)
+    if area < 512 + limit:  # too small a tile for the edge cases
+        return
+    for tile, clip in _edge_tiles(th, tw, gen):
+        tile = tile.to(cuda)
+        got = clahe.clahe_tile_luts(tile, clip, 1, 1)
+        assert torch.equal(got, clahe.clahe_tile_luts_ref(tile, clip, 1, 1))
+
+
+def test_clahe_enhancement_on_the_card_equals_the_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    slices = torch.randn((4, 182, 218), generator=gen) * 150 + 500
+    slices[1] = 7.0
+    want = enhance.enhance_for_model(slices, "CLAHE")  # the plain version
+    before = clahe.LAUNCHES
+    got = enhance.enhance_for_model(slices.to(cuda), "CLAHE")
+    assert clahe.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_clahe_wrapper_checks_its_inputs(cuda):
+    imgs = torch.zeros((2, 32, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="no kernel"):
+        clahe.clahe_tile_luts(imgs.to("meta"))
+    with pytest.raises(TypeError):
+        clahe.clahe_tile_luts(imgs.to(cuda, torch.float32))
+    with pytest.raises(ValueError):
+        clahe.clahe_tile_luts(imgs[0].to(cuda))
+    with pytest.raises(ValueError):
+        clahe.clahe_tile_luts(imgs.to(cuda), tiles_x=40)
+
+
+# --------------------------------------------------------------------------
+# fused stem
+# --------------------------------------------------------------------------
+
+
+def _stem_case(dtype, dev, seed=0):
+    model, _ = create_model(nc=1, scale="n", dtype=dtype)
+    sd = fold_gray_stem(init_variables(model, seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    for b in ("model.0", "model.1"):  # BN statistics away from identity
+        n = sd[f"{b}.bn.weight"].numel()
+        sd[f"{b}.bn.running_mean"] = torch.randn(n, generator=gen) * 0.2 + 0.3
+        sd[f"{b}.bn.running_var"] = torch.rand(n, generator=gen) * 1.5 + 0.5
+        sd[f"{b}.bn.bias"] = torch.randn(n, generator=gen) * 0.3 + 0.1
+    return model, stem.stem_weights({k: v.to(dev) for k, v in sd.items()})
+
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [64, 256, 96])
+def test_stem_kernel_matches_plain(cuda, dtype, size):
+    model, w = _stem_case(dtype, cuda)
+    x = torch.rand((5, size, size), generator=torch.Generator().manual_seed(size)).to(cuda, dtype)
+    before = stem.LAUNCHES
+    got = stem.stem_apply(model, w, x)
+    torch.cuda.synchronize()
+    assert stem.LAUNCHES == before + 1
+    want = stem.stem_reference(model, w, x)
+    assert got.shape == want.shape == (5, 32, size // 4, size // 4)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        bound = stem.bf16_error_bound(model, w, x, want)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def test_stem_wrapper_checks_its_inputs(cuda):
+    model, w = _stem_case(torch.float32, cuda)
+    x = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        stem.stem_apply(model, w, x.to("meta"))
+    with pytest.raises(TypeError):
+        stem.stem_apply(model, w, x.half())
+    with pytest.raises(ValueError):
+        stem.stem_apply(model, w, x[:, :62, :62])
+    with pytest.raises(ValueError):
+        stem.stem_apply(model, {k: v.cpu() for k, v in w.items()}, x)

@@ -24,7 +24,9 @@ def _port_modules():
 
 def test_importing_every_port_module_leaves_jax_out():
     mods = _port_modules()
-    assert "tpu_mslesseg_torch.infer.consensus3" in mods
+    for name in ("infer.consensus3", "pipeline.rapido", "pipeline.paths", "io.nifti",
+                 "train.checkpoint", "model.stem", "preproc.clahe"):
+        assert f"tpu_mslesseg_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

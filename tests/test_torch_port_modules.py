@@ -141,8 +141,14 @@ def test_normalize_and_he_constant_image_match_jax():
 
 
 def test_clahe_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="B2"):
-        tenh.enhance_batch(torch.zeros((1, 8, 8)), "CLAHE")
+    """ROADMAP B2 is done: CLAHE dispatches to the port's `clahe_batch`
+    (held against JAX in tests/test_torch_port_clahe.py); an unknown name
+    still raises."""
+    assert tenh._KERNELS["CLAHE"] is tenh.clahe_batch
+    imgs = np.random.default_rng(0).integers(0, 256, (2, 24, 28), dtype=np.uint8)
+    want = np.asarray(jenh.enhance_batch(imgs, "CLAHE", normalize=False))
+    got = tenh.enhance_batch(_t(imgs), "CLAHE", normalize=False).numpy()
+    np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError):
         tenh.enhance_batch(torch.zeros((1, 8, 8)), "XYZ")
 

@@ -43,28 +43,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``; builds it if needed."""
+def _lib_path(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD / f"lib{name}-{digest}.so"
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """The built libraries for ``csrc/<name>.cu`` of each name; builds the
+    missing ones with one ``nvcc`` each, all started together."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = _BUILD / f"lib{name}-{digest}.so"
-        if not lib_path.exists():
+        todo = [n for n in dict.fromkeys(names) if n not in _libs]
+        jobs = {}
+        for name in todo:
+            lib_path = _lib_path(name)
+            if lib_path.exists():
+                continue
             _BUILD.mkdir(exist_ok=True)
             tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs[name] = (proc, tmp, lib_path)
+        failed = []
+        for name, (proc, tmp, lib_path) in jobs.items():
+            _, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src.name} (rc {proc.returncode}):\n"
-                    f"{proc.stderr}"
-                )
+                failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{err}")
+                continue
             os.replace(tmp, lib_path)
-            build_logs[name] = proc.stderr
-        lib = ctypes.CDLL(str(lib_path))
-        _libs[name] = lib
-        return lib
+            build_logs[name] = err
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in todo:
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return {n: _libs[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``; builds it if needed."""
+    return load_all([name])[name]

@@ -26,6 +26,11 @@ def plane_axis(plane: str) -> int:
         raise ValueError(f"Unknown plane {plane!r}; expected one of {PLANES}")
 
 
+def num_slices(shape, plane: str) -> int:
+    """Total slice count of a volume along the given plane."""
+    return shape[plane_axis(plane)]
+
+
 def slice_shape(shape, plane: str):
     """(H, W) of a 2D slice extracted along `plane` from a volume `shape`."""
     axis = plane_axis(plane)

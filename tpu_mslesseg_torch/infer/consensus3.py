@@ -6,13 +6,14 @@ device:
     raw volume slices (3 planes)
       -> enhancement + per-slice PNG stretch
       -> per-plane letterbox -> one concatenated [sum(N), S, S, 1] forward
-         (or one forward per plane with per-plane weights)
+         (or one forward per plane with per-plane weights; the stem as the
+         fused CUDA kernel with TPU_MSLESSEG_PALLAS_STEM=1)
       -> DFL decode + padded NMS + proto-mask union (CUDA kernel)
       -> per-plane inverse-letterbox sampling -> volume scatter
       -> majority vote -> confusion counts
 
-Not ported (TPU-only or later): the serving TPU flags, the ``mesh=`` SPMD
-path and the fused Pallas stem.
+Not ported (TPU-only or later): the serving TPU flags and the ``mesh=``
+SPMD path.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from tpu_mslesseg_torch.infer.predictor import (
     _bilinear_sample, detect_and_union, prepare_variables, proto_grid,
 )
 from tpu_mslesseg_torch.infer.reconstruct import consensus_vote
+from tpu_mslesseg_torch.model import stem
 from tpu_mslesseg_torch.preproc import enhance
 
 PLANES = geometry.PLANES
@@ -102,6 +104,9 @@ class ConsensusPredictor:
             h, w = geometry.slice_shape(self.vol_shape, p)
             # PNG-space (model) dims are transposed volume-slice dims
             self.lb[p] = dec.Letterbox(src_h=w, src_w=h, size=imgsz)
+        # opt-in fused stem (TPU_MSLESSEG_PALLAS_STEM=1, CUDA only), one set
+        # of stem weights per plane with per-plane variables
+        self._stem_w = stem.maybe_build(self.variables, self.device, imgsz)
 
     def _as_device(self, x, dtype=None):
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
@@ -126,17 +131,18 @@ class ConsensusPredictor:
             xs_by_plane.append(torch.cat(xs, 0).to(self.model.dtype)[..., None])
             segs.append((p, len(mods), n))
 
-        run = lambda v, x: detect_and_union(
+        run = lambda v, x, sw: detect_and_union(
             self.model, v, x, self.imgsz, self.conf, self.iou, self.max_det,
-            self.mask_union,
+            self.mask_union, sw,
         )
+        sw = self._stem_w
         if _per_plane(self.variables):
             union = torch.cat(
-                [run(self.variables[p], x)
+                [run(self.variables[p], x, None if sw is None else sw[p])
                  for (p, _, _), x in zip(segs, xs_by_plane)], 0,
             )
         else:
-            union = run(self.variables, torch.cat(xs_by_plane, 0))
+            union = run(self.variables, torch.cat(xs_by_plane, 0), sw)
         return union, segs
 
     def _plane_logits(self, union_p, plane):

@@ -1,10 +1,12 @@
 """Batched slice predictor for one plane.
 
-Port of ``tpu_mslesseg/infer/predictor.py`` (without the fused stem):
+Port of ``tpu_mslesseg/infer/predictor.py``:
 
     volume-space uint8 slices [N,H,W]
       -> PNG-space orient -> letterbox -> /255
-      -> YOLO11-seg forward on grayscale input (stem folded over in_ch)
+      -> YOLO11-seg forward on grayscale input (stem folded over in_ch;
+         with TPU_MSLESSEG_PALLAS_STEM=1 on a CUDA device, b0+b1 run as
+         the fused stem kernel)
       -> DFL decode + padded NMS (conf .25, iou .7, max_det 300)
       -> proto-mask union at proto resolution
       -> bilinear sample of the union logits at the inverse-letterbox
@@ -19,6 +21,7 @@ from tpu_mslesseg_torch.core import geometry
 from tpu_mslesseg_torch.infer import decode as dec
 from tpu_mslesseg_torch.infer.mask_union import mask_union_logits_batch
 from tpu_mslesseg_torch.infer.nms import nms_batch
+from tpu_mslesseg_torch.model import stem
 from tpu_mslesseg_torch.model.yolo11 import fold_gray_stem
 
 PROTO_STRIDE = 4
@@ -57,10 +60,15 @@ def proto_grid(lb: dec.Letterbox, device=None):
 
 
 def detect_and_union(model, variables, x, imgsz, conf, iou, max_det,
-                     mask_union=mask_union_logits_batch):
+                     mask_union=mask_union_logits_batch, stem_w=None):
     """Forward on grayscale NHWC [M, S, S, 1], decode, NMS and the mask
-    union: -> union logits [M, mh, mw] f32."""
-    out = torch.func.functional_call(model, variables, (x,))
+    union: -> union logits [M, mh, mw] f32. With `stem_w` (from
+    ``stem.maybe_build``), b0+b1 run as the fused stem."""
+    if stem_w is not None:
+        p2 = stem.stem_apply(model, stem_w, x[..., 0])
+        out = torch.func.functional_call(model, variables, (p2,), {"from_p2": True})
+    else:
+        out = torch.func.functional_call(model, variables, (x,))
     reg_max = model.cfg.reg_max
     box_d, cls_l, mcoef = dec.flatten_level_outputs(out, reg_max)
     anchors, strides = dec.make_anchors(imgsz, imgsz, device=x.device)
@@ -111,6 +119,8 @@ class SlicePredictor:
         h, w = self.slice_hw
         # PNG-space (model) dims are transposed volume-slice dims
         self.lb = dec.Letterbox(src_h=w, src_w=h, size=imgsz)
+        # opt-in fused stem (TPU_MSLESSEG_PALLAS_STEM=1, CUDA only)
+        self._stem_w = stem.maybe_build(self.variables, self.device, imgsz)
 
     @torch.inference_mode()
     def __call__(self, slices_u8):
@@ -121,7 +131,7 @@ class SlicePredictor:
         x = self.lb.apply(png).to(self.model.dtype)[..., None]
         union = detect_and_union(
             self.model, self.variables, x, self.imgsz, self.conf, self.iou,
-            self.max_det,
+            self.max_det, stem_w=self._stem_w,
         )
         ys, xs = proto_grid(self.lb, self.device)
         png_masks = _bilinear_sample(union, ys, xs) > self.mask_thresh

@@ -116,7 +116,10 @@ class YOLO11Seg(nn.Module):
     """Full YOLO11-seg network; child index == ultralytics layer index.
 
     Input: NHWC [B, H, W, C] with H, W % 32 == 0 (C is 3, or 1 with a
-    stem folded by `fold_gray_stem`). Returns a dict of NHWC tensors:
+    stem folded by `fold_gray_stem`); with ``from_p2``, the P2/4 map
+    [B, c, H/4, W/4] (channels-last) that the fused stem computed
+    (``model/stem.py``), and ``model.0``/``model.1`` are skipped. Returns a
+    dict of NHWC tensors:
       box:   list of 3 [B, Hi, Wi, 4*reg_max] DFL box distributions
       cls:   list of 3 [B, Hi, Wi, nc] class logits
       mcoef: list of 3 [B, Hi, Wi, nm] mask coefficients
@@ -154,11 +157,14 @@ class YOLO11Seg(nn.Module):
                     cfg.ch(cfg.npr)),                                 # 23
         )
 
-    def forward(self, x):
+    def forward(self, x, from_p2: bool = False):
         m = self.model
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
-        y = m[3](m[2](m[1](m[0](x))))
+        if from_p2:
+            y = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        else:
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            y = m[1](m[0](x.contiguous(memory_format=torch.channels_last)))
+        y = m[3](m[2](y))
         p3b = m[4](y)
         p4b = m[6](m[5](p3b))
         p5b = m[10](m[9](m[8](m[7](p4b))))

@@ -1,19 +1,22 @@
-"""Image enhancement: HE / GC / LT on batches of uint8 slices ``[N, H, W]``.
+"""Image enhancement: HE / CLAHE / GC / LT on batches of uint8 slices ``[N, H, W]``.
 
 Port of ``tpu_mslesseg/preproc/enhance.py``, with the same numerics (the
 reference's OpenCV chains collapse to 1-D maps on grayscale slices):
 
 * HE — ``cv2.equalizeHist`` on the luma channel;
+* CLAHE — clip 2.0, 8x8 tiles on the LAB L channel: the fixed-point L
+  maps, the tile LUTs (``preproc/clahe.py``, a CUDA kernel on the card)
+  and the four-LUT bilinear blend;
 * GC — the LUT ``uint8((linspace(0,1,256)**gamma)*255)``, gamma 2.0;
 * LT — ``c*log(1+v)`` with ``c = 255/log(1+max)`` per slice.
-
-CLAHE is not ported yet: it arrives with its kernel (ROADMAP B2).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpu_mslesseg_torch.preproc import clahe
 
 
 def normalize_to_uint8(slices):
@@ -64,16 +67,100 @@ def lt_batch(imgs_u8):
     return torch.floor(y.clamp(0, 255)).to(torch.uint8)
 
 
-def _clahe_not_ported(imgs_u8):
-    raise NotImplementedError(
-        "CLAHE is not ported yet: it arrives with its tile-LUT kernel "
-        "(ROADMAP B2)"
-    )
+def _lab_luts():
+    """Forward (gray->L8) and backward (L8->gray) CIELAB luma maps.
+
+    The sRGB-gamma CIELAB transforms for neutral gray, with the reference's
+    per-entry integer corrections so that both maps equal OpenCV's
+    fixed-point colorspace tables bit for bit."""
+    v = np.arange(256) / 255.0
+    vlin = np.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
+    L = np.where(vlin > 0.008856, 116.0 * np.cbrt(vlin) - 16.0, 903.3 * vlin)
+    fwd = np.round(L * 255.0 / 100.0).astype(np.int32)
+
+    l8 = np.arange(256)
+    Lf = l8 * 100.0 / 255.0
+    fy = (Lf + 16.0) / 116.0
+    Y = np.where(Lf > 903.3 * 0.008856, fy**3, Lf / 903.3)
+    srgb = np.where(Y <= 0.0031308, 12.92 * Y, 1.055 * np.power(Y, 1 / 2.4) - 0.055)
+    bwd = np.clip(np.round(srgb * 255.0), 0, 255).astype(np.int32)
+
+    # fixed-point corrections: {index: delta} vs the analytic formula
+    fwd_fix = {
+        4: -1, 6: 1, 9: 1, 12: 1, 17: -1, 23: -1, 25: 1, 28: 1, 30: -1, 33: 1,
+        37: 1, 42: -1, 47: 1, 67: 1, 75: 1, 77: -1, 89: 1, 110: 1, 112: 1,
+        113: 1, 143: 1, 144: 1, 145: 1, 146: 1, 147: 1, 171: 1, 172: 1,
+        187: 1, 188: 1, 189: 1, 201: 1, 202: 1, 213: 1, 214: 1, 224: 1,
+        233: 1, 234: 1, 243: 1, 251: 1, 252: 1,
+    }
+    bwd_fix = {
+        1: 1, 19: 1, 23: -1, 33: 1, 38: 1, 44: 1, 50: 1, 56: -1, 64: -1,
+        121: -1,
+    }
+    for i, d in fwd_fix.items():
+        fwd[i] += d
+    for i, d in bwd_fix.items():
+        bwd[i] += d
+    return fwd.astype(np.uint8), bwd.astype(np.uint8)
+
+
+_LAB_FWD, _LAB_BWD = _lab_luts()
+
+
+def _fma_f32(a, b, c):
+    """f32 ``a * b + c`` rounded once, as the reference's compiled program
+    computes it (XLA contracts the multiply and the add into one FMA). Here
+    the float64 product and sum are exact, so one rounding remains."""
+    return (a.to(torch.float64) * b.to(torch.float64) + c).to(torch.float32)
+
+
+def _clahe_core(l_imgs, clip_limit: float, tiles_x: int, tiles_y: int):
+    """OpenCV's CLAHE on each uint8 image of [N, H, W]: the tile LUTs
+    (kernel on the card), then the four-LUT bilinear blend, rounded half
+    to even, clipped and cast to uint8.
+
+    The blend's float32 arithmetic is the reference's compiled program's:
+    ``x / tile - 0.5`` is a multiply by the float32 reciprocal fused with
+    the subtraction, and each ``a*u + b*v`` is ``fma(a, u, b*v)``."""
+    n, H, W = l_imgs.shape
+    th, tw, _, _ = clahe.tile_geometry(H, W, clip_limit, tiles_x, tiles_y)
+    luts = clahe.clahe_tile_luts(l_imgs, clip_limit, tiles_x, tiles_y)
+    dev = l_imgs.device
+
+    def coords(size, tile, count):
+        recip = torch.tensor(np.float32(1.0 / tile), device=dev)
+        f = _fma_f32(torch.arange(size, dtype=torch.float32, device=dev), recip, -0.5)
+        i = torch.floor(f).to(torch.long)
+        return f - i, i.clamp(0, count - 1), (i + 1).clamp(0, count - 1)
+
+    ya, ty1, ty2 = coords(H, th, tiles_y)
+    xa, tx1, tx2 = coords(W, tw, tiles_x)
+    ya, xa = ya[:, None], xa[None, :]
+    v = l_imgs.long().reshape(n, -1)
+    flat = luts.reshape(n, -1)
+
+    def gather(ty, tx):  # luts[n, ty[y], tx[x], v[n, y, x]]
+        at = ((ty[:, None] * tiles_x + tx[None, :]) * 256).reshape(1, -1)
+        return flat.gather(1, at + v).reshape(n, H, W)
+
+    top = _fma_f32(gather(ty1, tx1), 1 - xa, gather(ty1, tx2) * xa)
+    bottom = _fma_f32(gather(ty2, tx1), 1 - xa, gather(ty2, tx2) * xa)
+    res = _fma_f32(top, 1 - ya, bottom * ya)
+    return torch.round(res).clamp(0, 255).to(torch.uint8)
+
+
+def clahe_batch(imgs_u8, clip_limit: float = 2.0, tiles_x: int = 8, tiles_y: int = 8):
+    """The reference's CLAHE chain: gray -> LAB L -> CLAHE -> back to gray."""
+    dev = imgs_u8.device
+    fwd = torch.from_numpy(_LAB_FWD).to(dev)
+    bwd = torch.from_numpy(_LAB_BWD).to(dev)
+    out = _clahe_core(fwd[imgs_u8.long()], clip_limit, tiles_x, tiles_y)
+    return bwd[out.long()]
 
 
 _KERNELS = {
     "HE": he_batch,
-    "CLAHE": _clahe_not_ported,
+    "CLAHE": clahe_batch,
     "GC": gc_batch,
     "LT": lt_batch,
 }
