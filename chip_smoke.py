@@ -8,8 +8,11 @@ Phases, each printing one JSON line:
    (one ``nvcc`` each, started together).
 1. kernel: the proto-mask union kernel against its plain PyTorch version on
    the card, at the main path's shapes (64 images, 160x160 proto, 32
-   coefficients, 300 detection slots), proto in bf16 and f32, for four
-   keep patterns.
+   coefficients, 300 detection slots), for four keep patterns: bf16 proto
+   with bf16 coefficients (the tensor-core kernel, within
+   ``mask_union.union_error_bound``), bf16 and f32 proto with f32
+   coefficients (the FMA kernel, atol 1e-4, rtol 1e-5); then the
+   tensor-core kernel's edge cases (K = 21, a 20x24 map, nothing kept).
 2. main path (GC): ``ConsensusPredictor.lote`` at full width (YOLO11n-seg,
    bf16, imgsz 640, GC enhancement, umbral 2, per-plane counts, the plain
    stem) over 4 synthetic 182x218x182 patients, 50 lesion-centred slices
@@ -19,7 +22,8 @@ Phases, each printing one JSON line:
    same call with the plain union; then times 3 dispatches after a warm-up
    (informational).
 3. timing: the union kernel and its plain version on phase 2's union
-   inputs (600 images).
+   inputs (one launch of 600 images), with the bytes and operations that
+   work needs, its bound and the kernel's share of it.
 4. clahe_kernel: the CLAHE tile-LUT kernel against its plain version on 64
    random L images of each plane shape and on one-tile edge cases
    (constant, two-valued, residual 0, every bin clipped): exactly equal;
@@ -43,16 +47,26 @@ Phases, each printing one JSON line:
    direct ``lote`` of the same groups and the JSONs their counts' metrics.
 7. stem_main_path: phase 6's first group through ``lote`` with the stem
    off: per-plane and consensus Dice against the stem-on run (the consensus
-   at least 0.99), and the stem kernel against the plain blocks on that
-   group's own inputs (the bf16 bound of phase 5).
-8. timing: the CLAHE kernel against its plain version on phase 6's L
-   images, and the stem at 600 images of 640: the median of plain, kernel,
-   kernel, plain blocks after a warm-up.
+   at least 0.99), and the stem and union kernels against their plain
+   versions on that group's own inputs (the bounds of phases 5 and 1).
+8. timing: each kernel against its plain version at the main path's
+   per-launch shapes, on phase 7's inputs (one CLAHE dispatch: three
+   launches of 200 images, one a plane, each with its plane's weights),
+   and the stem at 600 images of 640: the median of plain, kernel, kernel,
+   plain blocks after a warm-up. Each kernel's timing comes with a
+   ``bound`` line: the bytes and operations the work needs (each input
+   read once, each output written once; the union's products counted over
+   the pixels its kept boxes hold), the least time the card could take for
+   them (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32
+   off them), which of the two bounds it, the share bound / kernel, and
+   the launches a dispatch.
 
-Then the kernel summary line, the card's ``nvidia-smi`` name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failure raises and
-the script exits non-zero; without a CUDA device, or outside a checkout of
-the repository, it exits non-zero before printing any result.
+Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
+the bound and what bounds it; ``library_ms`` is null, as no single PyTorch
+call computes any of the three functions), the card's ``nvidia-smi`` name
+and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
+raises and the script exits non-zero; without a CUDA device, or outside a
+checkout of the repository, it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -80,7 +94,7 @@ IMGSZ = 640
 EPOCHS = 50
 DEVICE = "cuda:0"
 MAX_DIFF_LINES = 50
-ATOL, RTOL = 1e-4, 1e-5
+ATOL, RTOL = 1e-4, 1e-5  # the FMA union kernel (f32 coefficients)
 STEM_TOL = 2e-5
 NEAR_THRESHOLD = 1e-3
 MIN_DICE = 0.99
@@ -93,6 +107,10 @@ KERNEL_SOURCES = {
     "stem": ("tpu_mslesseg_torch/csrc/stem.cu", "tpu_mslesseg/model/stem_pallas.py:149"),
 }
 KERNELS = tuple(KERNEL_SOURCES)
+# the H100 SXM's published peaks (NVIDIA's data sheet: dense rates, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
 # the serving model of phase 6, as a user's environment would set it
 SERVING_ENV = {
     "TPU_MSLESSEG_PALLAS_STEM": "1", "TPU_MSLESSEG_DTYPE": "bfloat16",
@@ -172,27 +190,30 @@ def synthetic_batch(geometry, torch):
 
 class Recorder:
     """Passes the union through to `fn`, keeps the last call's inputs and
-    output (for the timing phase) and counts kept detections over calls."""
+    output (and with `keep_calls` every call's inputs) for the timing
+    phases, and counts kept detections over calls."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, keep_calls: bool = False):
         self.fn = fn
         self.last = None
+        self.calls = [] if keep_calls else None
         self.kept = 0
         self.images = 0
 
     def __call__(self, proto, mcoef, boxes, keep, stride):
         out = self.fn(proto, mcoef, boxes, keep, stride)
         self.last = (proto, mcoef, boxes, keep, stride, out)
+        if self.calls is not None:
+            self.calls.append((proto, mcoef, boxes, keep, stride))
         self.kept = self.kept + keep.sum()  # on the device: no sync per call
         self.images += keep.shape[0]
         return out
 
 
-def random_case(torch, gen, n, k, dtype, pattern, dev):
-    mh = mw = 160
+def random_case(torch, gen, n, k, dtype, pattern, dev, coef_dtype=None, mh=160, mw=160):
     proto = torch.randn((n, mh, mw, 32), generator=gen).to(dev, dtype)
-    coef = torch.randn((n, k, 32), generator=gen).to(dev)
-    xy = torch.rand((n, k, 2), generator=gen) * 640
+    coef = torch.randn((n, k, 32), generator=gen).to(dev, coef_dtype or torch.float32)
+    xy = torch.rand((n, k, 2), generator=gen) * 4 * torch.tensor([mw, mh])
     wh = torch.rand((n, k, 2), generator=gen) * 200 + 2
     if pattern == "off_map":  # boxes that run off the 640x640 letterbox
         xy = xy * 1.5 - 320
@@ -227,6 +248,88 @@ def timed_pair(torch, run_k, run_p, reps_k: int, reps_p: int):
     for fn, sink in ((run_p, p_ms), (run_k, k_ms), (run_k, k_ms), (run_p, p_ms)):
         sink.append(cuda_ms(torch, fn, reps_k if fn is run_k else reps_p))
     return k_ms, p_ms
+
+
+def check_union(torch, mu, args, got, want) -> dict:
+    """The union kernel's error against the plain version on `args`:
+    within ``union_error_bound`` on the tensor-core route, atol/rtol on the
+    FMA route; raises beyond it."""
+    route = mu.kernel_inputs(*args[:4])[0]
+    d = (got - want).abs()
+    out = {"route": route, "max_abs_err": float(d.max())}
+    if route == "fma":
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        return out
+    bound = mu.union_error_bound(*args)
+    ratio = torch.where(bound > 0, d / bound, torch.where(d > 0, float("inf"), 0.0))
+    out["max_err_over_bound"] = float(ratio.max())
+    if out["max_err_over_bound"] > 1.0:
+        raise AssertionError(f"mask union ({route}): {out} beyond union_error_bound")
+    return out
+
+
+def emit_bound(kernel: str, work: dict, kernel_ms: float, launches: int, what: str) -> None:
+    emit({"phase": "bound", "kernel": kernel, "work": what, **work, "kernel_ms": kernel_ms,
+          "share_of_bound": work["bound_ms"] / kernel_ms, "launches_per_dispatch": launches})
+
+
+def work_bound(bytes_moved: float, ops: dict) -> dict:
+    """The least time the card could take for work that moves `bytes_moved`
+    and does ops {pipe: (count, peak per s)}: the larger of the bytes' time
+    at the memory rate and the slowest pipe's time at its peak."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n / rate * 1e3 for n, rate in ops.values())
+    return {"bytes": bytes_moved, "ops": {k: n for k, (n, _) in ops.items()},
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def union_work(torch, mu, proto, mcoef, boxes, keep, stride, out) -> dict:
+    """Bytes and products of one union launch: proto, the coefficients as
+    the kernel takes them, boxes, keep and the union once; 64 flops per
+    (pixel, kept detection whose box holds it), on the tensor cores for the
+    mma route, else on the f32 pipe."""
+    route, coef, b, kp, _ = mu.kernel_inputs(proto, mcoef, boxes, keep)
+    _, mh, mw, _ = proto.shape
+    q = b / stride
+    def span(lo, hi, size):
+        return (torch.ceil(hi).clamp(0, size) - torch.ceil(lo).clamp(0, size)).clamp(min=0)
+    pixels = (span(q[..., 0], q[..., 2], mw) * span(q[..., 1], q[..., 3], mh))[kp].sum()
+    flops = 64.0 * float(pixels)
+    rate = BF16_TENSOR_FLOPS if route == "mma" else F32_FLOPS
+    return work_bound(nbytes(proto, coef, b, kp, out), {f"{route}_flops": (flops, rate)})
+
+
+def stem_work(x, out) -> dict:
+    """Bytes and operations of one fused-stem launch on x [M, S, S] bf16:
+    input and P2 once; b0 on the f32 pipe, b1 on the tensor cores."""
+    m, h, w = x.shape
+    b0 = 2.0 * m * (h // 2) * (w // 2) * 16 * 9
+    b1 = 2.0 * m * (h // 4) * (w // 4) * 32 * 16 * 9
+    return work_bound(nbytes(x, out), {"b0_f32_flops": (b0, F32_FLOPS),
+                                       "b1_bf16_flops": (b1, BF16_TENSOR_FLOPS)})
+
+
+def clahe_work(x, luts) -> dict:
+    """Bytes and operations of one tile-LUT launch: the uint8 L images and
+    the f32 LUTs once; a histogram add a pixel and about four operations a
+    LUT entry (clip, redistribute, CDF, scale) off the tensor cores."""
+    ops = float(x.numel()) + 4.0 * luts.numel()
+    return work_bound(nbytes(x, luts), {"ops": (ops, F32_FLOPS)})
+
+
+def summed(works) -> dict:
+    """Several launches' work as one dispatch's."""
+    tot = {"bytes": sum(w["bytes"] for w in works),
+           "ops": {k: sum(w["ops"][k] for w in works) for k in works[0]["ops"]}}
+    for key in ("bytes_ms", "ops_ms", "bound_ms"):
+        tot[key] = sum(w[key] for w in works)
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    return tot
 
 
 @contextlib.contextmanager
@@ -357,7 +460,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {
         k: [ln.strip() for ln in _build.build_logs.get(k, "").splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "Function properties" in ln]
         for k in KERNELS
     }
     emit({"phase": "device", **card, "count": torch.cuda.device_count(),
@@ -367,20 +470,25 @@ def main() -> int:
 
     # ---- phase 1: union kernel vs plain at the main path's shapes ---------
     gen = torch.Generator().manual_seed(0)
-    for dtype in (torch.bfloat16, torch.float32):
-        for pattern in ("random", "all_dead", "scattered", "off_map"):
-            args = random_case(torch, gen, 64, 300, dtype, pattern, dev)
-            got = mu.mask_union_logits_batch(*args)
-            want = mu.mask_union_logits_ref(*args)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
-            if pattern == "all_dead" and not bool((got == mu._NEG).all()):
-                raise AssertionError("all-dead slots must give exactly -1e4")
-            max_err["mask_union"] = max(max_err["mask_union"], err)
-            emit({"phase": "kernel", "dtype": str(dtype).removeprefix("torch."),
-                  "pattern": pattern, "n": 64, "k": 300, "max_abs_err": err,
-                  "atol": ATOL, "rtol": RTOL})
+    dname = lambda t: str(t).removeprefix("torch.")
+    cases = [(d, c, pattern, 64, 300, 160, 160)
+             for d, c in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                          (torch.float32, torch.float32))
+             for pattern in ("random", "all_dead", "scattered", "off_map")]
+    cases += [(torch.bfloat16, torch.bfloat16, "random", 16, 21, 160, 160),  # K % 8 != 0
+              (torch.bfloat16, torch.bfloat16, "random", 16, 40, 20, 24),  # ragged tiles
+              (torch.bfloat16, torch.bfloat16, "off_map", 16, 40, 20, 24)]
+    for dtype, coef_dtype, pattern, n, k, mh, mw in cases:
+        args = random_case(torch, gen, n, k, dtype, pattern, dev, coef_dtype, mh, mw)
+        got = mu.mask_union_logits_batch(*args)
+        want = mu.mask_union_logits_ref(*args)
+        torch.cuda.synchronize()
+        errs = check_union(torch, mu, args, got, want)
+        if pattern == "all_dead" and not bool((got == mu._NEG).all()):
+            raise AssertionError("all-dead slots must give exactly -1e4")
+        max_err["mask_union"] = max(max_err["mask_union"], errs["max_abs_err"])
+        emit({"phase": "kernel", "proto_dtype": dname(dtype), "coef_dtype": dname(coef_dtype),
+              "pattern": pattern, "n": n, "k": k, "map": [mh, mw], **errs})
 
     # ---- phase 2: the GC main path (plain stem) ----------------------------
     model, _ = create_model(nc=1, scale="n", dtype=torch.bfloat16)
@@ -477,6 +585,7 @@ def main() -> int:
         if rep:
             times.append(time.perf_counter() - t0)
     emit({"phase": "main_path", "mejora": "GC", "kernel_launches": launches,
+          "union_route": mu.kernel_inputs(*kernel_union.last[:4])[0],
           "kept_per_slice": kept_per_slice, "slices_dispatched": int(keep.shape[0]),
           "real_slices": real_slices, "voxels_differing_from_plain": n_diff,
           "padded_slots_clean": True, "metrics_patient0": metrics,
@@ -490,12 +599,15 @@ def main() -> int:
     run_p = lambda: mu.mask_union_logits_ref(proto, mcoef, boxes, keep, stride)
     got, want = run_k(), run_p()
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
-    max_err["mask_union"] = max(max_err["mask_union"], float((got - want).abs().max()))
+    errs = check_union(torch, mu, kernel_union.last[:5], got, want)
+    max_err["mask_union"] = max(max_err["mask_union"], errs["max_abs_err"])
+    work = union_work(torch, mu, proto, mcoef, boxes, keep, stride, got)
     k_ms, p_ms = timed_pair(torch, run_k, run_p, 10, 3)
-    timing = {"mask_union": (float(np.median(k_ms)), float(np.median(p_ms)))}
+    emit_bound("mask_union", work, float(np.median(k_ms)), launches,
+               "phase 2: one GC dispatch, one launch of 600 images")
     emit({"phase": "timing", "kernel": "mask_union", "n": int(proto.shape[0]),
-          "k": int(mcoef.shape[1]), "proto_dtype": str(proto.dtype).removeprefix("torch."),
+          "k": int(mcoef.shape[1]), "proto_dtype": dname(proto.dtype),
+          "coef_dtype": dname(mcoef.dtype), **errs,
           "kept_per_image": float(keep.sum()) / keep.shape[0],
           "kernel_ms": k_ms, "plain_ms": p_ms, **card})
     del cp, cp_plain, kernel_union, plain_union, proto, mcoef, boxes, keep, got, want
@@ -658,7 +770,8 @@ def main() -> int:
                                     "lote_slices_per_s": real_fold / sum(lote_s), **card}})
 
             # ---- phase 7: stem off vs stem on, same group -------------------
-            rec_on, rec_off = Recorder(mu.mask_union_logits_batch), Recorder(mu.mask_union_logits_batch)
+            rec_on = Recorder(mu.mask_union_logits_batch, keep_calls=True)
+            rec_off = Recorder(mu.mask_union_logits_batch)
             with switched(stem, "ENABLED", False):
                 cp_off = ConsensusPredictor(
                     smodel, payloads[0]["variables"], VOL_SHAPE, mejora="CLAHE",
@@ -680,8 +793,8 @@ def main() -> int:
                 b = off_cons if k == "consenso" else off_vols[k]
                 dices[k] = dice(a, b)
                 differing[k] = int((a != b).sum())
-            # the kernel against the plain blocks on this group's own inputs
-            stem_inputs = {}
+            # the kernels against their plain versions on this group's own inputs
+            stem_inputs, stem_x, stem_w = {}, {}, dict(cp._stem_w)
             for p in PLANES:
                 sl = torch.as_tensor(on_arrays[0][p]["FLAIR"], device=dev)
                 u8 = enhance.enhance_for_model(sl.reshape((-1,) + sl.shape[2:]), "CLAHE")
@@ -691,11 +804,22 @@ def main() -> int:
                 want = stem.stem_reference(smodel, cp._stem_w[p], x)
                 stem_inputs[p] = stem_errors(torch, stem, smodel, cp._stem_w[p], x, got, want)
                 max_err["stem"] = max(max_err["stem"], stem_inputs[p]["max_abs_err"])
+                stem_x[p] = x
+            union_calls = dict(zip(PLANES, rec_on.calls))  # the per-plane launches
+            if len(rec_on.calls) != len(PLANES):
+                raise AssertionError(f"{len(rec_on.calls)} union calls in a per-plane lote")
+            union_inputs = {}
+            for p, call in union_calls.items():
+                got, want = mu.mask_union_logits_batch(*call), mu.mask_union_logits_ref(*call)
+                torch.cuda.synchronize()
+                union_inputs[p] = check_union(torch, mu, call, got, want)
+                max_err["mask_union"] = max(max_err["mask_union"], union_inputs[p]["max_abs_err"])
             keep_on, keep_off = rec_on.last[3], rec_off.last[3]  # the last plane's NMS
             emit({"phase": "stem_main_path", "patients": 4, "dice_stem_on_vs_off": dices,
                   "voxels_differing": differing, "min_consensus_dice": MIN_DICE,
                   "stem_on_repeat_equal": bool(torch.equal(on_cons, first_cons)),
                   "stem_vs_plain_on_these_inputs": stem_inputs,
+                  "union_vs_plain_on_these_inputs": union_inputs,
                   f"{PLANES[-1]}_slices_whose_nms_keep_differs":
                       int((keep_on != keep_off).any(dim=1).sum()),
                   f"{PLANES[-1]}_kept_on_off": [int(keep_on.sum()), int(keep_off.sum())]})
@@ -712,22 +836,66 @@ def main() -> int:
             os.chdir(cwd)
     torch.cuda.empty_cache()
 
-    # ---- phase 8: CLAHE and stem, kernel vs plain time -----------------------
-    clahe_k, clahe_p = 0.0, 0.0
-    for p, x in l_imgs.items():
-        got, want = clahe.clahe_tile_luts(x), clahe.clahe_tile_luts_ref(x)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{p}: CLAHE LUTs differ on the main path's images")
-        k_ms, p_ms = timed_pair(torch, lambda: clahe.clahe_tile_luts(x),
-                                lambda: clahe.clahe_tile_luts_ref(x), 20, 5)
-        clahe_k += float(np.median(k_ms))
-        clahe_p += float(np.median(p_ms))
-        emit({"phase": "timing", "kernel": "clahe_tile_lut", "plane": p,
-              "n": int(x.shape[0]), "hw": list(x.shape[1:]),
-              "kernel_ms": k_ms, "plain_ms": p_ms, **card})
-    timing["clahe_tile_lut"] = (clahe_k, clahe_p)
+    # ---- phase 8: kernel vs plain time at the main path's per-launch shapes --
+    per_dispatch = {k: n // len(groups) for k, n in fold_launches.items()}
+    dispatch = "one CLAHE dispatch, per-plane weights: 3 launches of 200 images"
+    timing, works = {}, {}
 
+    def time_dispatch(kernel, runs, reps_k, reps_p, work_of, extra):
+        """Times each plane's launch, kernel vs plain; emits the timing
+        lines and the dispatch's bound line."""
+        k_sum, p_sum, ws = 0.0, 0.0, []
+        for p, (run_k, run_p) in runs.items():
+            k_ms, p_ms = timed_pair(torch, run_k, run_p, reps_k, reps_p)
+            k_sum += float(np.median(k_ms))
+            p_sum += float(np.median(p_ms))
+            ws.append(work_of(p))
+            emit({"phase": "timing", "kernel": kernel, "plane": p, **extra(p),
+                  "kernel_ms": k_ms, "plain_ms": p_ms, **card})
+        works[kernel] = summed(ws)
+        timing[kernel] = (k_sum, p_sum)
+        emit_bound(kernel, works[kernel], k_sum, per_dispatch[kernel], dispatch)
+
+    luts = {}
+    for p, x in l_imgs.items():
+        luts[p], want = clahe.clahe_tile_luts(x), clahe.clahe_tile_luts_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(luts[p], want):
+            raise AssertionError(f"{p}: CLAHE LUTs differ on the main path's images")
+    time_dispatch(
+        "clahe_tile_lut",
+        {p: ((lambda x=x: clahe.clahe_tile_luts(x)), (lambda x=x: clahe.clahe_tile_luts_ref(x)))
+         for p, x in l_imgs.items()},
+        20, 5, lambda p: clahe_work(l_imgs[p], luts[p]),
+        lambda p: {"n": int(l_imgs[p].shape[0]), "hw": list(l_imgs[p].shape[1:])},
+    )
+    del luts, want
+
+    time_dispatch(
+        "mask_union",
+        {p: ((lambda c=c: mu.mask_union_logits_batch(*c)),
+             (lambda c=c: mu.mask_union_logits_ref(*c))) for p, c in union_calls.items()},
+        10, 3,
+        lambda p: union_work(torch, mu, *union_calls[p],
+                             mu.mask_union_logits_batch(*union_calls[p])),
+        lambda p: {"n": int(union_calls[p][0].shape[0]), "k": int(union_calls[p][1].shape[1]),
+                   "kept_per_image": float(union_calls[p][3].sum()) / union_calls[p][3].shape[0],
+                   **union_inputs[p]},
+    )
+    del union_calls
+
+    time_dispatch(
+        "stem",
+        {p: ((lambda x=x, w=stem_w[p]: stem.stem_apply(smodel, w, x)),
+             (lambda x=x, w=stem_w[p]: stem.stem_reference(smodel, w, x)))
+         for p, x in stem_x.items()},
+        5, 3, lambda p: stem_work(stem_x[p], stem.stem_apply(smodel, stem_w[p], stem_x[p])),
+        lambda p: {"m": int(stem_x[p].shape[0]), "imgsz": IMGSZ, **stem_inputs[p]},
+    )
+    del stem_x, stem_w
+    torch.cuda.empty_cache()
+
+    # the stem at 600 images, as the earlier rows of the kernel table
     sd = perturbed_stem(torch, fold_gray_stem(init_variables(smodel, seed=5)), 6)
     w = stem.stem_weights({k: v.to(dev) for k, v in sd.items()})
     x = torch.rand((600, IMGSZ, IMGSZ), generator=gen).to(dev, torch.bfloat16)
@@ -735,17 +903,21 @@ def main() -> int:
     torch.cuda.synchronize()
     errs = stem_errors(torch, stem, smodel, w, x, got, want)
     max_err["stem"] = max(max_err["stem"], errs["max_abs_err"])
+    work = stem_work(x, got)
     del got, want
     k_ms, p_ms = timed_pair(torch, lambda: stem.stem_apply(smodel, w, x),
                             lambda: stem.stem_reference(smodel, w, x), 5, 3)
-    timing["stem"] = (float(np.median(k_ms)), float(np.median(p_ms)))
+    emit_bound("stem", work, float(np.median(k_ms)), per_dispatch["stem"],
+               "one launch of 600 random images")
     emit({"phase": "timing", "kernel": "stem", "m": 600, "imgsz": IMGSZ, "dtype": "bfloat16",
           **errs, "kernel_ms": k_ms, "plain_ms": p_ms, **card})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": fold_launches[name], "max_abs_err": max_err[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
+         "ms": timing[name][0], "plain_ms": timing[name][1],
+         "bound_ms": works[name]["bound_ms"], "bound_by": works[name]["bound_by"],
+         "library_ms": None, "work": dispatch}
         for name, (source, replaces) in KERNEL_SOURCES.items()
     ]})
     print(card["nvidia_smi"], flush=True)

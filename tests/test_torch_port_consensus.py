@@ -151,7 +151,8 @@ def test_slice_predictor_matches_jax(case, plane):
     want = JSlicePredictor(case["jmodel"], case["jvars"]["shared"], hw, imgsz=IMGSZ)(
         jnp.asarray(imgs.numpy())
     )
-    got = TSlicePredictor(case["tmodel"], case["tvars"]["shared"], hw, imgsz=IMGSZ)(imgs)
+    got = TSlicePredictor(case["tmodel"], case["tvars"]["shared"], hw, imgsz=IMGSZ,
+                          device="cpu")(imgs)
     assert got.dtype == torch.bool and tuple(got.shape) == tuple(want.shape)
     assert bool(got.any()) and not bool(got.all())
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -240,7 +241,7 @@ def test_consensus_call_matches_jax(case, mejora, weights):
     idx = {p: case["ids"] for p in PLANES}
     kw = dict(mejora=mejora, imgsz=IMGSZ, umbral=2, per_plane_counts=True)
     jcp = JConsensus(case["jmodel"], case["jvars"][weights], VOL_SHAPE, **kw)
-    tcp = TConsensus(case["tmodel"], case["tvars"][weights], VOL_SHAPE, **kw)
+    tcp = TConsensus(case["tmodel"], case["tvars"][weights], VOL_SHAPE, device="cpu", **kw)
     jout = jcp({p: jnp.asarray(s) for p, s in pat.items()}, idx, jnp.asarray(case["gt"]))
     tout = tcp(pat, idx, case["gt"])
     assert int(tout[1].sum()) > 0 and not bool(tout[1].all())  # masks are mixed
@@ -274,7 +275,7 @@ def _check_padded_lote(case, mejora, weights):
     gts = np.stack([case["gt"], case["gt"]])
     kw = dict(mejora=mejora, imgsz=IMGSZ, umbral=2, per_plane_counts=True)
     jcp = JConsensus(case["jmodel"], case["jvars"][weights], VOL_SHAPE, **kw)
-    tcp = TConsensus(case["tmodel"], case["tvars"][weights], VOL_SHAPE, **kw)
+    tcp = TConsensus(case["tmodel"], case["tvars"][weights], VOL_SHAPE, device="cpu", **kw)
     jout = jcp.lote({p: jnp.asarray(s) for p, s in slices.items()}, idx, jnp.asarray(gts))
     tout = tcp.lote(slices, idx, gts)
     for p in PLANES:

@@ -6,9 +6,11 @@ it without the repository's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py -q
 
-Tolerances: the mask union atol 1e-4, rtol 1e-5 (the kernel sums the 32
-products in another order than the plain version's matmul, which runs in
-full f32); the CLAHE tile LUTs exactly (integer histograms, the same f32
+Tolerances: the mask union with f32 coefficients (the FMA kernel) atol
+1e-4, rtol 1e-5 (the kernel sums the 32 products in another order than the
+plain version's matmul, which runs in full f32); with bf16 proto and bf16
+coefficients (the tensor-core kernel) ``mask_union.union_error_bound``, two
+f32 summation orders of 32 exact products; the CLAHE tile LUTs exactly (integer histograms, the same f32
 scale, round half to even); the stem in f32 atol and rtol 2e-5 (cuDNN's
 TF32 off), in bf16 ``stem.bf16_error_bound``: one bf16 ulp of b1's conv
 sum carried through BN and SiLU, plus one ulp of the output (the two sum in
@@ -74,6 +76,54 @@ def test_kernel_matches_plain(cuda, dtype, pattern, n, mh, mw, k):
     torch.cuda.synchronize()
     assert mu.LAUNCHES == before + 1
     torch.testing.assert_close(got, mu.mask_union_logits_ref(*args), atol=1e-4, rtol=1e-5)
+    if pattern == "all_dead":
+        assert bool((got == mu._NEG).all())
+
+
+def _tile_edge_boxes(gen, n, k, mh, mw):
+    """Boxes (letterbox px, proto stride 4) whose edges fall on, just
+    before and just after the 8 x 32 pixel tiles' borders, in rows and in
+    columns."""
+    offs = torch.tensor([-1.0, -0.5, 0.0, 0.25, 1.0, 7.5])
+    def edges(tile, size):
+        base = torch.randint(0, size // tile + 1, (n, k), generator=gen) * tile
+        lo = base + offs[torch.randint(0, len(offs), (n, k), generator=gen)]
+        span = torch.tensor([0.5, 1.0, float(tile), tile + 0.5, 2.5 * tile])
+        return lo, lo + span[torch.randint(0, len(span), (n, k), generator=gen)]
+    x1, x2 = edges(32, mw)
+    y1, y2 = edges(8, mh)
+    return torch.stack([x1, y1, x2, y2], -1) * 4
+
+
+@pytest.mark.parametrize(
+    "pattern,n,mh,mw,k",
+    [
+        ("random", 4, 40, 40, 21),  # K not a multiple of 8
+        ("random", 8, 160, 160, 300),
+        ("all_dead", 4, 40, 40, 300),  # n_active = 0
+        ("scattered", 4, 160, 160, 300),
+        ("off_map", 4, 40, 40, 130),
+        ("tile_edges", 3, 40, 72, 64),  # boxes cut the tiles in rows and columns
+        ("random", 3, 20, 24, 13),  # map not a multiple of the tile
+        ("random", 3, 9, 9, 5),
+    ],
+)
+def test_mma_kernel_within_bound(cuda, pattern, n, mh, mw, k):
+    proto, coef, boxes, keep = _case(k + n, n, mh, mw, k,
+                                     "random" if pattern == "tile_edges" else pattern,
+                                     torch.bfloat16, cuda)
+    coef = coef.to(torch.bfloat16)
+    if pattern == "tile_edges":
+        boxes = _tile_edge_boxes(torch.Generator().manual_seed(k), n, k, mh, mw).to(cuda)
+    assert mu.kernel_inputs(proto, coef, boxes, keep)[0] == "mma"
+    before = mu.LAUNCHES
+    got = mu.mask_union_logits_batch(proto, coef, boxes, keep)
+    torch.cuda.synchronize()
+    assert mu.LAUNCHES == before + 1
+    want = mu.mask_union_logits_ref(proto, coef, boxes, keep)
+    bound = mu.union_error_bound(proto, coef, boxes, keep)
+    assert bool(((got - want).abs() <= bound).all())
+    assert bool((got[bound == 0] == mu._NEG).all())
     if pattern == "all_dead":
         assert bool((got == mu._NEG).all())
 

@@ -1,0 +1,165 @@
+"""The port's serving defaults, the mask union's error bound and the union
+wrapper's input preparation, on the CPU.
+
+- ``ConsensusPredictor`` and ``SlicePredictor`` serve on CUDA unless the
+  caller asks for another device (the CPU tests pass ``device="cpu"``).
+- ``mask_union.union_error_bound`` bounds the plain version's f32 result
+  against the exact dot products (float64 of the same bf16 inputs), and is
+  0 exactly where no kept box holds the pixel.
+- ``mask_union.kernel_inputs`` routes bf16 proto with bf16 coefficients to
+  the tensor-core kernel and everything else to the FMA kernel, and computes
+  each image's live-slot count.
+- ``chip_smoke.py`` counts the bytes and operations of the work it bounds
+  from the shapes and, for the union, from the pixels the kept boxes hold;
+  ``tools/kernel_ab.py``'s ablations still find their text in the stem.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_mslesseg_torch.infer import mask_union as mu
+from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
+from tpu_mslesseg_torch.infer.predictor import SlicePredictor
+
+
+@pytest.mark.parametrize("cls", [ConsensusPredictor, SlicePredictor])
+def test_predictors_serve_on_cuda_by_default(cls):
+    assert inspect.signature(cls.__init__).parameters["device"].default == "cuda"
+
+
+def _bf16_case(seed, n=3, mh=12, mw=20, k=17, scale=1.0):
+    rng = np.random.default_rng(seed)
+    proto = torch.from_numpy(rng.normal(size=(n, mh, mw, 32)) * scale).to(torch.bfloat16)
+    coef = torch.from_numpy(rng.normal(size=(n, k, 32)) * scale).to(torch.bfloat16)
+    x1 = rng.uniform(-8, 4 * mw, (n, k))
+    y1 = rng.uniform(-8, 4 * mh, (n, k))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(1, 2 * mw, (n, k)),
+                      y1 + rng.uniform(1, 2 * mh, (n, k))], -1)
+    keep = torch.from_numpy(rng.uniform(size=(n, k)) > 0.4)
+    keep[0] = False  # an image with nothing kept
+    return proto, coef, torch.from_numpy(boxes.astype(np.float32)), keep
+
+
+def _exact_union(proto, coef, boxes, keep, stride=4):
+    """The union in float64 on the same (bf16) inputs, and where a kept box
+    holds each pixel."""
+    p = proto.double().numpy()
+    c = coef.double().numpy()
+    b = boxes.double().numpy() / stride
+    kp = keep.numpy()
+    n, mh, mw, _ = p.shape
+    rows = np.arange(mh)[None, None, :, None]
+    cols = np.arange(mw)[None, None, None, :]
+    dots = np.einsum("nkc,nhwc->nkhw", c, p)
+    x1, y1, x2, y2 = (b[..., i, None, None] for i in range(4))
+    ok = (cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2) & kp[:, :, None, None]
+    return np.where(ok, dots, mu._NEG).max(1), ok.any(1)
+
+
+@pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 1.0), (2, 37.0), (3, 0.01)])
+def test_union_error_bound_bounds_the_f32_sum(seed, scale):
+    args = _bf16_case(seed, scale=scale)
+    ref = mu.mask_union_logits_ref(*args).double().numpy()
+    bound = mu.union_error_bound(*args).double().numpy()
+    exact, held = _exact_union(*args)
+    assert held.any() and not held.all()
+    assert np.all(np.abs(ref - exact) <= bound)
+    assert np.all(bound[~held] == 0.0) and np.all(bound[held] > 0.0)
+    assert np.all(ref[~held] == mu._NEG)
+    # the bound is a bound, not a guess: it holds with room on these inputs
+    assert np.abs(ref - exact)[held].max() <= 0.5 * bound[held].max()
+
+
+@pytest.mark.parametrize(
+    "proto_dtype,coef_dtype,route",
+    [
+        (torch.bfloat16, torch.bfloat16, "mma"),
+        (torch.bfloat16, torch.float32, "fma"),
+        (torch.float32, torch.bfloat16, "fma"),
+        (torch.float32, torch.float32, "fma"),
+    ],
+)
+def test_kernel_inputs_route_by_dtype(proto_dtype, coef_dtype, route):
+    proto, coef, boxes, keep = _bf16_case(5)
+    proto, coef = proto.to(proto_dtype), coef.to(coef_dtype)
+    got_route, c, b, kp, _ = mu.kernel_inputs(proto, coef, boxes.double(), keep)
+    assert got_route == route
+    assert c.dtype == (torch.bfloat16 if route == "mma" else torch.float32)
+    assert c.is_contiguous() and torch.equal(c.float(), coef.float())
+    assert b.dtype == torch.float32 and kp.dtype == torch.bool
+
+
+def test_kernel_inputs_n_active_is_the_highest_kept_slot_plus_one():
+    proto, coef, boxes, _ = _bf16_case(6, n=4, k=9)
+    keep = torch.zeros((4, 9), dtype=torch.bool)
+    keep[1, 0] = True
+    keep[2, [2, 5]] = True
+    keep[3, 8] = True
+    *_, n_active = mu.kernel_inputs(proto, coef, boxes, keep.t().contiguous().t())
+    assert n_active.dtype == torch.int32
+    assert n_active.tolist() == [0, 1, 6, 9]
+
+
+# --------------------------------------------------------------------------
+# the bounds chip_smoke.py reports, and the kernel A/B tool's ablations
+# --------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "fma")])
+def test_union_work_counts_the_products_the_data_needs(dtype, route):
+    cs = _chip_smoke()
+    proto, coef, boxes, keep = _bf16_case(7, n=3, mh=12, mw=20, k=17)
+    proto, coef = proto.to(dtype), coef.to(dtype)
+    out = mu.mask_union_logits_ref(proto, coef, boxes, keep)
+    work = cs.union_work(torch, mu, proto, coef, boxes, keep, 4, out)
+    _, held = _exact_union(proto, coef, boxes, keep)
+    b = boxes.double().numpy() / 4
+    rows, cols = np.arange(12)[None, None, :, None], np.arange(20)[None, None, None, :]
+    x1, y1, x2, y2 = (b[..., i, None, None] for i in range(4))
+    pairs = ((cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2)
+             & keep.numpy()[:, :, None, None]).sum()
+    assert pairs > 0 and held.sum() <= pairs
+    assert work["ops"] == {f"{route}_flops": 64.0 * pairs}
+    elem = 2 if route == "mma" else 4
+    assert work["bytes"] == (proto.numel() * proto.element_size() + coef.numel() * elem
+                             + boxes.numel() * 4 + keep.numel() + out.numel() * 4)
+    assert work["bound_by"] == "bytes"
+    assert work["bound_ms"] == pytest.approx(work["bytes"] / cs.HBM_BYTES_PER_S * 1e3)
+
+
+def test_stem_work_counts_both_convolutions():
+    cs = _chip_smoke()
+    x = torch.zeros((2, 64, 96), dtype=torch.bfloat16)
+    out = torch.zeros((2, 16, 24, 32), dtype=torch.bfloat16)
+    work = cs.stem_work(x, out)
+    assert work["bytes"] == 2 * 64 * 96 * 2 + 2 * 16 * 24 * 32 * 2
+    assert work["ops"] == {"b0_f32_flops": 2.0 * 2 * 32 * 48 * 16 * 9,
+                           "b1_bf16_flops": 2.0 * 2 * 16 * 24 * 32 * 16 * 9}
+    ops_ms = max(work["ops"]["b0_f32_flops"] / cs.F32_FLOPS,
+                 work["ops"]["b1_bf16_flops"] / cs.BF16_TENSOR_FLOPS) * 1e3
+    assert work["ops_ms"] == pytest.approx(ops_ms)
+    both = cs.summed([work, work])
+    assert both["bytes"] == 2 * work["bytes"] and both["bound_ms"] == 2 * work["bound_ms"]
+
+
+def test_kernel_ab_ablations_still_match_the_stem_source():
+    from tpu_mslesseg_torch.tools import kernel_ab
+
+    src = (kernel_ab.CSRC / "stem.cu").read_text()
+    for name, subs in kernel_ab.ABLATIONS.items():
+        for old, _ in subs:
+            assert src.count(old) == 1, (name, old)

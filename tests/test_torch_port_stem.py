@@ -118,12 +118,12 @@ def test_predictor_with_the_switch_on_cpu_runs_the_plain_chain(variables, monkey
         np.random.default_rng(9).integers(0, 256, (2, 28, 24), dtype=np.uint8)
     )
     monkeypatch.setattr(tst, "ENABLED", True)
-    on = tpred.SlicePredictor(tmodel, sd, (28, 24), imgsz=64)
+    on = tpred.SlicePredictor(tmodel, sd, (28, 24), imgsz=64, device="cpu")
     assert on._stem_w is None
     launches = tst.LAUNCHES
     got = on(slices)
     monkeypatch.setattr(tst, "ENABLED", False)
-    want = tpred.SlicePredictor(tmodel, sd, (28, 24), imgsz=64)(slices)
+    want = tpred.SlicePredictor(tmodel, sd, (28, 24), imgsz=64, device="cpu")(slices)
     assert tst.LAUNCHES == launches
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 

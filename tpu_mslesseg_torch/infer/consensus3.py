@@ -72,7 +72,7 @@ class ConsensusPredictor:
         mask_thresh: float = 0.0,
         planes=PLANES,
         per_plane_counts: bool = False,
-        device="cpu",
+        device="cuda",
         mask_union=mask_union_logits_batch,
     ):
         self.model = model

@@ -106,7 +106,7 @@ class SlicePredictor:
 
     def __init__(self, model, variables, slice_hw, imgsz: int = 640,
                  conf: float = 0.25, iou: float = 0.7, max_det: int = 300,
-                 mask_thresh: float = 0.0, device="cpu"):
+                 mask_thresh: float = 0.0, device="cuda"):
         self.model = model
         self.device = torch.device(device)
         self.variables = prepare_variables(model, variables, self.device)

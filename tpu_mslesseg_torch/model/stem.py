@@ -11,7 +11,9 @@ activations of the network (at 640: 320x320x16 and 160x160x32 per image).
 ``model.1`` blocks. ``stem_apply`` runs ``csrc/stem.cu`` on a CUDA tensor,
 which replaces the reference's Pallas ``_stem_kernel``: one pass that keeps
 the b0 output on chip and writes only the P2 map, NHWC, which is the memory
-of the channels-last ``[M, 32, S/4, S/4]`` tensor ``model.2`` takes.
+of the channels-last ``[M, 32, S/4, S/4]`` tensor ``model.2`` takes. In
+bf16 the kernel computes ``model.1``'s convolution on the tensor cores; in
+f32 on the FMA pipe (the source note says why).
 
 As in the reference, the fused stem is opt-in: ``TPU_MSLESSEG_PALLAS_STEM=1``
 turns it on (the same variable, default "0"), and ``maybe_build`` is the one
@@ -123,6 +125,8 @@ def stem_apply(model, weights, x):
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("stem: weights must be contiguous f32 on the input's device")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads bf16 pairs and 16-byte rows
+        x = x.clone()
     out = torch.empty((m, h // 4, w // 4, 32), dtype=x.dtype, device=x.device)
     fn = _lib()
     with torch.cuda.device(x.device):
