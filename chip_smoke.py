@@ -4,8 +4,9 @@
 
 Phases, each printing one JSON line:
 
-0. device: the card's name and power limit; builds the three CUDA kernels
-   (one ``nvcc`` each, started together).
+0. device: the card's name and power limit; builds the CUDA sources of the
+   four kernels (one ``nvcc`` a source, started together; the two CLAHE
+   kernels share one).
 1. kernel: the proto-mask union kernel against its plain PyTorch version on
    the card, at the main path's shapes (64 images, 160x160 proto, 32
    coefficients, 300 detection slots), for four keep patterns: bf16 proto
@@ -25,10 +26,12 @@ Phases, each printing one JSON line:
    inputs (one launch of 600 images), with the bytes and operations that
    work needs, its bound and the kernel's share of it.
 4. clahe_kernel: the CLAHE tile-LUT kernel against its plain version on 64
-   random L images of each plane shape and on one-tile edge cases
-   (constant, two-valued, residual 0, every bin clipped): exactly equal;
-   then ``enhance_for_model(..., "CLAHE")`` with the kernel against the
-   same with the plain LUTs, on the card.
+   random and 64 background-heavy L images (noise in a centred disc of
+   half the area, zeros around it) of each plane shape and on one-tile edge
+   cases (constant, two-valued, residual 0, every bin clipped), and the
+   blend kernel against its plain version on the first two sets: exactly
+   equal; then ``enhance_for_model(..., "CLAHE")`` with both kernels
+   against the same with both plain versions, on the card.
 5. stem_kernel: the fused stem against ``model.0``/``model.1`` (BN
    statistics perturbed) at 64 images of 640: f32 within 2e-5; bf16 within
    one bf16 ulp of b1's conv sum carried through BN and SiLU, plus one ulp
@@ -42,8 +45,9 @@ Phases, each printing one JSON line:
    CLAHE``, YOLO11n-seg, bf16, imgsz 640, umbral 2 and
    ``TPU_MSLESSEG_PALLAS_STEM=1``: two dispatches of 4 patients, the second
    the fifth patient repeated. Checks that every volume/JSON pair and
-   nothing else was written, that the CLAHE, stem and union kernels all
-   launched, that NMS kept detections, that the volumes on disk equal a
+   nothing else was written, that all four kernels launched (the CLAHE
+   tile LUTs and blend, the stem, the union), that NMS
+   kept detections, that the volumes on disk equal a
    direct ``lote`` of the same groups and the JSONs their counts' metrics.
 7. stem_main_path: phase 6's first group through ``lote`` with the stem
    off: per-plane and consensus Dice against the stem-on run (the consensus
@@ -53,18 +57,28 @@ Phases, each printing one JSON line:
    per-launch shapes, on phase 7's inputs (one CLAHE dispatch: three
    launches of 200 images, one a plane, each with its plane's weights),
    and the stem at 600 images of 640: the median of plain, kernel, kernel,
-   plain blocks after a warm-up. Each kernel's timing comes with a
-   ``bound`` line: the bytes and operations the work needs (each input
-   read once, each output written once; the union's products counted over
-   the pixels its kept boxes hold), the least time the card could take for
-   them (3.35 TB/s; 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32
-   off them), which of the two bounds it, the share bound / kernel, and
-   the launches a dispatch.
+   plain blocks after a warm-up. The two CLAHE kernels are timed again on a
+   background-heavy copy of those L images (each slice inside a centred
+   disc of half its area, zeros around it, as a FLAIR slice is about half
+   background). A CLAHE kernel takes less time than the host takes to call
+   its wrapper, so its time is the device time from replays of a CUDA
+   graph of 20 wrapper calls (the event-timed calls kept as ``call_ms``).
+   Each kernel's timing comes with a ``bound`` line: the bytes
+   and operations the work needs (each input read once, each output
+   written once; the union's products counted over the pixels its kept
+   boxes hold), the least time the card could take for them (3.35 TB/s;
+   989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 off them), which
+   of the two bounds it, the share bound / kernel, and the launches a
+   dispatch. Then the whole CLAHE enhancement of a dispatch
+   (``enhance_for_model`` on the group's 3 x 200 slices) with both plain
+   versions, with the tile-LUT kernel and the plain blend, and with both
+   kernels, timed in turns; the three results are equal.
 
 Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
-the bound and what bounds it; ``library_ms`` is null, as no single PyTorch
-call computes any of the three functions), the card's ``nvidia-smi`` name
-and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
+the CLAHE kernels' background-heavy ms, the bound and what bounds it;
+``library_ms`` is null, as no single PyTorch call computes any of the four
+functions), the card's ``nvidia-smi`` name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failure
 raises and the script exits non-zero; without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -104,9 +118,14 @@ KERNEL_SOURCES = {
                    "tpu_mslesseg/infer/mask_union_pallas.py:88"),
     "clahe_tile_lut": ("tpu_mslesseg_torch/csrc/clahe_tile_lut.cu",
                        "tpu_mslesseg/preproc/clahe_pallas.py:27"),
+    "clahe_blend": ("tpu_mslesseg_torch/csrc/clahe_tile_lut.cu",
+                    "tpu_mslesseg/preproc/clahe_pallas.py:86"),
     "stem": ("tpu_mslesseg_torch/csrc/stem.cu", "tpu_mslesseg/model/stem_pallas.py:149"),
 }
 KERNELS = tuple(KERNEL_SOURCES)
+SOURCES = tuple(dict.fromkeys(Path(src).stem for src, _ in KERNEL_SOURCES.values()))
+NOTES = {"clahe_blend": "the reference's blend is the XLA apply outside pallas_call "
+                        "(one-hot matmuls on the TPU's MXU), not a Pallas kernel"}
 # the H100 SXM's published peaks (NVIDIA's data sheet: dense rates, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -239,6 +258,33 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device ms of one `fn` call: `reps` calls captured in one CUDA graph,
+    replayed three times after a warm-up; the median replay over `reps`.
+    Free of the host's cost of a call, which exceeds a CLAHE kernel's time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
 def timed_pair(torch, run_k, run_p, reps_k: int, reps_p: int):
     """Kernel and plain ms: one warm-up each, then blocks in the order
     plain, kernel, kernel, plain; returns (kernel blocks, plain blocks)."""
@@ -322,6 +368,13 @@ def clahe_work(x, luts) -> dict:
     return work_bound(nbytes(x, luts), {"ops": (ops, F32_FLOPS)})
 
 
+def blend_work(x, luts, out) -> dict:
+    """Bytes and operations of one blend launch: the uint8 L images, the f32
+    LUTs and the uint8 output once; ten f32 operations a pixel (three FMAs
+    of two, two products, two differences) off the tensor cores."""
+    return work_bound(nbytes(x, luts, out), {"ops": (10.0 * x.numel(), F32_FLOPS)})
+
+
 def summed(works) -> dict:
     """Several launches' work as one dispatch's."""
     tot = {"bytes": sum(w["bytes"] for w in works),
@@ -343,9 +396,35 @@ def switched(module, name, value):
         setattr(module, name, old)
 
 
-def zero_launches(*modules):
-    for m in modules:
-        m.LAUNCHES = 0
+def background_heavy(torch, imgs):
+    """`imgs` [N, H, W] inside a centred disc of half the image's area,
+    zeros around it: about as much background as a FLAIR slice holds."""
+    _, h, w = imgs.shape
+    yy, xx = torch.meshgrid(torch.arange(h, device=imgs.device),
+                            torch.arange(w, device=imgs.device), indexing="ij")
+    inside = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < 0.5 * h * w / np.pi
+    return imgs * inside
+
+
+@contextlib.contextmanager
+def plain_clahe(clahe, luts: bool = True, blend: bool = True):
+    """CLAHE's tile LUTs (with `luts`) and its blend (with `blend`) by the
+    plain versions for the duration."""
+    with contextlib.ExitStack() as stack:
+        if luts:
+            stack.enter_context(switched(clahe, "clahe_tile_luts", clahe.clahe_tile_luts_ref))
+        if blend:
+            stack.enter_context(switched(clahe, "clahe_blend", clahe.clahe_blend_ref))
+        yield
+
+
+def zero_launches(counters):
+    for module, name in counters.values():
+        setattr(module, name, 0)
+
+
+def read_launches(counters) -> dict:
+    return {k: getattr(module, name) for k, (module, name) in counters.items()}
 
 
 def perturbed_stem(torch, sd, seed: int):
@@ -451,17 +530,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_label(torch)
-    kmods = {"mask_union": mu, "clahe_tile_lut": clahe, "stem": stem}
+    # each kernel's launch count: (module, counter)
+    counters = {"mask_union": (mu, "LAUNCHES"), "clahe_tile_lut": (clahe, "LAUNCHES"),
+                "clahe_blend": (clahe, "BLEND_LAUNCHES"), "stem": (stem, "LAUNCHES")}
     max_err = dict.fromkeys(KERNELS, 0.0)
 
     # ---- phase 0: device and build -------------------------------------
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)
+    _build.load_all(SOURCES)
     build_s = time.perf_counter() - t0
     ptxas = {
         k: [ln.strip() for ln in _build.build_logs.get(k, "").splitlines()
             if "registers" in ln or "spill" in ln or "Function properties" in ln]
-        for k in KERNELS
+        for k in SOURCES
     }
     emit({"phase": "device", **card, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -506,10 +587,10 @@ def main() -> int:
         cp = ConsensusPredictor(model, variables, VOL_SHAPE, mask_union=kernel_union, **kw)
         cp_plain = ConsensusPredictor(model, variables, VOL_SHAPE, mask_union=plain_union, **kw)
 
-    zero_launches(*kmods.values())
+    zero_launches(counters)
     counts, cons, vols = cp.lote(slices, idx, gts)
     torch.cuda.synchronize()
-    launches = mu.LAUNCHES
+    launches = read_launches(counters)["mask_union"]
     if launches < 1:
         raise AssertionError("the main path did not launch the mask-union kernel")
 
@@ -612,11 +693,12 @@ def main() -> int:
           "kernel_ms": k_ms, "plain_ms": p_ms, **card})
     del cp, cp_plain, kernel_union, plain_union, proto, mcoef, boxes, keep, got, want
 
-    # ---- phase 4: CLAHE tile-LUT kernel vs plain ----------------------------
-    lut_cases = 0
+    # ---- phase 4: CLAHE tile-LUT and blend kernels vs plain -----------------
+    bwd = torch.from_numpy(enhance._LAB_BWD).to(dev)
     for hw in [(182, 218), (182, 182), (218, 182)]:
         imgs = torch.randint(0, 256, (64,) + hw, generator=gen, dtype=torch.uint8).to(dev)
-        cases = [(imgs, 2.0, 8)]
+        sets = {"random": imgs, "background": background_heavy(torch, imgs)}
+        cases = [(x, 2.0, 8) for x in sets.values()]
         th, tw, area, limit = clahe.tile_geometry(*hw)
         big = 512 + limit
         edge = [
@@ -635,18 +717,33 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"CLAHE LUTs differ from the plain version at {hw}")
-            lut_cases += 1
-        raw = imgs.to(torch.float32) * 3.7 - 40.0  # the same images as slices
-        got = enhance.enhance_for_model(raw, "CLAHE")
-        with switched(clahe, "clahe_tile_luts", clahe.clahe_tile_luts_ref):
-            want = enhance.enhance_for_model(raw, "CLAHE")
-        torch.cuda.synchronize()
-        n_px = int((got != want).sum())
-        if n_px:
-            raise AssertionError(f"CLAHE enhancement differs from the plain version ({n_px} px)")
-        emit({"phase": "clahe_kernel", "hw": list(hw), "images": 64,
+        blend_px = {}
+        for name, x in sets.items():
+            luts = clahe.clahe_tile_luts(x)
+            got = clahe.clahe_blend(x, luts, bwd)
+            want = clahe.clahe_blend_ref(x, luts, bwd)
+            torch.cuda.synchronize()
+            blend_px[name] = int((got != want).sum())
+            if blend_px[name]:
+                raise AssertionError(f"CLAHE blend differs from the plain version at {hw}, "
+                                     f"{name}: {blend_px[name]} px")
+        enhance_px = {}
+        for name, x in sets.items():
+            raw = x.to(torch.float32) * 3.7 - 40.0  # the same images as slices
+            got = enhance.enhance_for_model(raw, "CLAHE")
+            with plain_clahe(clahe):
+                want = enhance.enhance_for_model(raw, "CLAHE")
+            torch.cuda.synchronize()
+            enhance_px[name] = int((got != want).sum())
+            if enhance_px[name]:
+                raise AssertionError(f"CLAHE enhancement differs from the plain versions "
+                                     f"({enhance_px[name]} px, {name})")
+        emit({"phase": "clahe_kernel", "hw": list(hw), "images": {k: 64 for k in sets},
+              "background_share": float((sets["background"] == 0).float().mean()),
               "tile": [th, tw], "limit": limit, "edge_tiles": len(edge),
-              "max_abs_err": 0.0, "enhance_for_model_px_differing": n_px})
+              "max_abs_err": 0.0, "blend_px_differing": blend_px,
+              "enhance_for_model_px_differing": enhance_px})
+    del imgs, sets, cases, luts, got, want
 
     # ---- phase 5: stem kernel vs model.0/model.1 ---------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -684,14 +781,14 @@ def main() -> int:
         cwd = os.getcwd()
         os.chdir(root)
         try:
-            zero_launches(*kmods.values())
+            zero_launches(counters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ok = rapido.ejecutar_fold_rapido(modelo, epochs=EPOCHS, k_folds=5, fold_test=1,
                                              umbral=2, device=dev)
             torch.cuda.synchronize()
             fold_s = time.perf_counter() - t0
-            fold_launches = {k: m.LAUNCHES for k, m in kmods.items()}
+            fold_launches = read_launches(counters)
             if ok is not True:
                 raise AssertionError("ejecutar_fold_rapido did not serve the fold")
             for k, n in fold_launches.items():
@@ -825,10 +922,12 @@ def main() -> int:
                   f"{PLANES[-1]}_kept_on_off": [int(keep_on.sum()), int(keep_off.sum())]})
             if dices["consenso"] < MIN_DICE:
                 raise AssertionError(f"stem on vs off: consensus Dice {dices} below {MIN_DICE}")
-            l_imgs = {}  # phase 8's CLAHE inputs: the group's L images per plane
+            # phase 8's CLAHE inputs: the group's slices and L images per plane
+            clahe_slices, l_imgs = {}, {}
             for p in PLANES:
                 sl = torch.as_tensor(on_arrays[0][p]["FLAIR"], device=dev)
-                u8 = enhance.normalize_to_uint8(sl.reshape((-1,) + sl.shape[2:]))
+                clahe_slices[p] = sl.reshape((-1,) + sl.shape[2:])
+                u8 = enhance.normalize_to_uint8(clahe_slices[p])
                 l_imgs[p] = torch.from_numpy(enhance._LAB_FWD).to(dev)[u8.long()]
             del cp, cp_off, direct, payloads, cache, on_arrays, on_cons, on_vols
             del off_cons, off_vols, first_cons, rec_on, rec_off, got, want, x
@@ -841,35 +940,86 @@ def main() -> int:
     dispatch = "one CLAHE dispatch, per-plane weights: 3 launches of 200 images"
     timing, works = {}, {}
 
-    def time_dispatch(kernel, runs, reps_k, reps_p, work_of, extra):
+    def time_dispatch(kernel, runs, reps_k, reps_p, work_of, extra, inputs="main path",
+                      graph=False):
         """Times each plane's launch, kernel vs plain; emits the timing
-        lines and the dispatch's bound line."""
+        lines and the dispatch's bound line. With `graph`, the kernel's
+        time is its device time from CUDA-graph replays of the wrapper's
+        call, and the event-timed call (host cost included) is kept as
+        `call_ms`. Main-path timings are kept under the kernel's name,
+        others under (kernel, inputs)."""
         k_sum, p_sum, ws = 0.0, 0.0, []
         for p, (run_k, run_p) in runs.items():
             k_ms, p_ms = timed_pair(torch, run_k, run_p, reps_k, reps_p)
+            call = {}
+            if graph:
+                call = {"call_ms": k_ms}
+                k_ms = [graph_ms(torch, run_k, reps_k) for _ in range(2)]
             k_sum += float(np.median(k_ms))
             p_sum += float(np.median(p_ms))
             ws.append(work_of(p))
-            emit({"phase": "timing", "kernel": kernel, "plane": p, **extra(p),
-                  "kernel_ms": k_ms, "plain_ms": p_ms, **card})
-        works[kernel] = summed(ws)
-        timing[kernel] = (k_sum, p_sum)
-        emit_bound(kernel, works[kernel], k_sum, per_dispatch[kernel], dispatch)
+            emit({"phase": "timing", "kernel": kernel, "inputs": inputs, "plane": p, **extra(p),
+                  "kernel_ms": k_ms, **call, "plain_ms": p_ms, **card})
+        key = kernel if inputs == "main path" else (kernel, inputs)
+        works[key] = summed(ws)
+        timing[key] = (k_sum, p_sum)
+        emit_bound(kernel, works[key], k_sum, per_dispatch[kernel], f"{dispatch}; {inputs}")
 
-    luts = {}
-    for p, x in l_imgs.items():
-        luts[p], want = clahe.clahe_tile_luts(x), clahe.clahe_tile_luts_ref(x)
-        torch.cuda.synchronize()
-        if not torch.equal(luts[p], want):
-            raise AssertionError(f"{p}: CLAHE LUTs differ on the main path's images")
-    time_dispatch(
-        "clahe_tile_lut",
-        {p: ((lambda x=x: clahe.clahe_tile_luts(x)), (lambda x=x: clahe.clahe_tile_luts_ref(x)))
-         for p, x in l_imgs.items()},
-        20, 5, lambda p: clahe_work(l_imgs[p], luts[p]),
-        lambda p: {"n": int(l_imgs[p].shape[0]), "hw": list(l_imgs[p].shape[1:])},
-    )
-    del luts, want
+    clahe_sets = {"main path": l_imgs,
+                  "background": {p: background_heavy(torch, x) for p, x in l_imgs.items()}}
+    for inputs, imgs in clahe_sets.items():
+        luts = {}
+        for p, x in imgs.items():
+            luts[p], want = clahe.clahe_tile_luts(x), clahe.clahe_tile_luts_ref(x)
+            got, want_b = clahe.clahe_blend(x, luts[p], bwd), clahe.clahe_blend_ref(x, want, bwd)
+            torch.cuda.synchronize()
+            if not torch.equal(luts[p], want):
+                raise AssertionError(f"{p}: CLAHE LUTs differ on the {inputs} L images")
+            if not torch.equal(got, want_b):
+                raise AssertionError(f"{p}: CLAHE blend differs on the {inputs} L images")
+        shape = lambda p: {"n": int(imgs[p].shape[0]), "hw": list(imgs[p].shape[1:]),
+                           "background_share": float((imgs[p] == 0).float().mean())}
+        time_dispatch(
+            "clahe_tile_lut",
+            {p: ((lambda x=x: clahe.clahe_tile_luts(x)), (lambda x=x: clahe.clahe_tile_luts_ref(x)))
+             for p, x in imgs.items()},
+            20, 5, lambda p: clahe_work(imgs[p], luts[p]), shape, inputs, graph=True,
+        )
+        time_dispatch(
+            "clahe_blend",
+            {p: ((lambda x=x, t=luts[p]: clahe.clahe_blend(x, t, bwd)),
+                 (lambda x=x, t=luts[p]: clahe.clahe_blend_ref(x, t, bwd)))
+             for p, x in imgs.items()},
+            20, 5, lambda p: blend_work(imgs[p], luts[p], clahe.clahe_blend(imgs[p], luts[p], bwd)),
+            shape, inputs, graph=True,
+        )
+        del luts, want, got, want_b
+
+    # the whole CLAHE enhancement of the dispatch: plain, the tile-LUT
+    # kernel with the plain blend, and both kernels
+    variants = {"plain": lambda: plain_clahe(clahe),
+                "tile_lut_kernel_plain_blend": lambda: plain_clahe(clahe, luts=False),
+                "kernels": contextlib.nullcontext}
+
+    def enhancement(variant):
+        with variants[variant]():
+            return [enhance.enhance_for_model(sl, "CLAHE") for sl in clahe_slices.values()]
+
+    outs = {v: enhancement(v) for v in variants}
+    torch.cuda.synchronize()
+    for v in variants:
+        if not all(torch.equal(a, b) for a, b in zip(outs[v], outs["plain"])):
+            raise AssertionError(f"CLAHE enhancement ({v}) differs from the plain versions")
+    del outs
+    order = list(variants) + list(variants)[::-1]
+    blocks = {v: [] for v in variants}
+    for v in order:
+        blocks[v].append(cuda_ms(torch, lambda v=v: enhancement(v), 5))
+    emit({"phase": "timing", "what": "clahe_enhancement_per_dispatch",
+          "slices": {p: int(sl.shape[0]) for p, sl in clahe_slices.items()},
+          "ms": {v: float(np.median(b)) for v, b in blocks.items()}, "blocks_ms": blocks,
+          "outputs_equal": True, **card})
+    del clahe_slices, l_imgs, clahe_sets
 
     time_dispatch(
         "mask_union",
@@ -917,7 +1067,10 @@ def main() -> int:
          "launches": fold_launches[name], "max_abs_err": max_err[name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": works[name]["bound_ms"], "bound_by": works[name]["bound_by"],
-         "library_ms": None, "work": dispatch}
+         "library_ms": None, "work": dispatch,
+         **({"ms_background": timing[(name, "background")][0]}
+            if (name, "background") in timing else {}),
+         **({"note": NOTES[name]} if name in NOTES else {})}
         for name, (source, replaces) in KERNEL_SOURCES.items()
     ]})
     print(card["nvidia_smi"], flush=True)

@@ -7,11 +7,14 @@ through ``_clahe_core`` on a one-tile image: with one tile the four blended
 LUTs are the same, the blend returns the LUT entry of each pixel's value,
 and every value the tile holds shows its LUT entry. The images are held
 exactly against ``enhance.clahe_batch`` and ``enhance_for_model``, and
-within the cv2 goldens' own bounds (``tests/test_enhance.py``).
+within the cv2 goldens' own bounds (``tests/test_enhance.py``). The blend's
+plain version, given the LUTs of JAX's Pallas kernel, equals the blend of
+JAX's compiled ``_clahe_core`` on every pixel.
 """
 
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -159,3 +162,57 @@ def test_lab_luts_equal_jax():
 def test_wrapper_refuses_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         tcl.clahe_tile_luts(torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta"))
+
+
+def _disc_images(rng, n, h, w):
+    """Noise inside a centred disc of half the image's area, zeros outside:
+    background-heavy, as a FLAIR slice is."""
+    yy, xx = np.mgrid[:h, :w]
+    inside = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < 0.5 * h * w / np.pi
+    return (rng.integers(0, 256, (n, h, w)) * inside).astype(np.uint8)
+
+
+def _jax_luts(imgs, tiles_x, tiles_y):
+    """JAX's Pallas tile LUTs of uint8 images [N, H, W], as [N, T, 256]."""
+    n, h, w = imgs.shape
+    th, tw, area, limit = tcl.tile_geometry(h, w, 2.0, tiles_x, tiles_y)
+    ext = np.pad(imgs, ((0, 0), (0, tiles_y * th - h), (0, tiles_x * tw - w)), mode="reflect")
+    tiles = ext.reshape(n, tiles_y, th, tiles_x, tw).transpose(0, 1, 3, 2, 4).reshape(-1, area)
+    luts = jcp._tile_luts_pallas(jnp.asarray(tiles, jnp.int32), area, limit)
+    return np.array(luts).reshape(n, tiles_y * tiles_x, 256)
+
+
+BLEND_CASES = {  # name: (images, tiles_x, tiles_y)
+    **{f"plane_{h}x{w}": (lambda rng, h=h, w=w: rng.integers(0, 256, (2, h, w)).astype(np.uint8), 8, 8)
+       for h, w in PLANE_HW},
+    "background_182x218": (lambda rng: _disc_images(rng, 2, 182, 218), 8, 8),
+    "one_tile_23x28": (lambda rng: rng.integers(0, 256, (2, 23, 28)).astype(np.uint8), 1, 1),
+    "tiles_4x6_182x218": (lambda rng: rng.integers(0, 256, (2, 182, 218)).astype(np.uint8), 4, 6),
+}
+
+
+@pytest.mark.parametrize("case", list(BLEND_CASES))
+def test_clahe_blend_ref_equals_jax_blend(case):
+    """The plain blend on LUTs from JAX's Pallas kernel equals the blend in
+    JAX's compiled ``_clahe_core`` (the program ``clahe_batch`` runs), the
+    backward L map applied to both."""
+    make, tiles_x, tiles_y = BLEND_CASES[case]
+    imgs = make(np.random.default_rng(len(case)))
+    luts = _jax_luts(imgs, tiles_x, tiles_y)
+    core = jax.jit(jax.vmap(lambda im: jenh._clahe_core(im, 2.0, tiles_x, tiles_y)))
+    want = jenh._LAB_BWD[np.asarray(core(jnp.asarray(imgs)))]
+    bwd = torch.from_numpy(tenh._LAB_BWD)
+    got = tcl.clahe_blend_ref(torch.from_numpy(imgs), torch.from_numpy(luts), bwd, tiles_x, tiles_y)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == imgs.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the wrapper runs the plain version on the CPU and launches nothing
+    before = tcl.BLEND_LAUNCHES
+    again = tcl.clahe_blend(torch.from_numpy(imgs), torch.from_numpy(luts), bwd, tiles_x, tiles_y)
+    assert torch.equal(again, got) and tcl.BLEND_LAUNCHES == before
+
+
+def test_blend_wrapper_refuses_devices_without_a_kernel():
+    imgs = torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta")
+    luts = torch.zeros((1, 64, 256), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tcl.clahe_blend(imgs, luts, torch.zeros(256, dtype=torch.uint8, device="meta"))

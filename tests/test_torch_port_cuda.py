@@ -11,7 +11,8 @@ Tolerances: the mask union with f32 coefficients (the FMA kernel) atol
 plain version's matmul, which runs in full f32); with bf16 proto and bf16
 coefficients (the tensor-core kernel) ``mask_union.union_error_bound``, two
 f32 summation orders of 32 exact products; the CLAHE tile LUTs exactly (integer histograms, the same f32
-scale, round half to even); the stem in f32 atol and rtol 2e-5 (cuDNN's
+scale, round half to even) and the CLAHE blend exactly (the same f32
+roundings, each FMA rounded once); the stem in f32 atol and rtol 2e-5 (cuDNN's
 TF32 off), in bf16 ``stem.bf16_error_bound``: one bf16 ulp of b1's conv
 sum carried through BN and SiLU, plus one ulp of the output (the two sum in
 different orders, so a conv sum may round one ulp apart, and where BN's
@@ -185,14 +186,71 @@ def test_clahe_kernel_equals_plain(cuda, hw):
         assert torch.equal(got, clahe.clahe_tile_luts_ref(tile, clip, 1, 1))
 
 
+def _clahe_images(kind, n, h, w, gen):
+    """uint8 images [n, h, w]: uniform noise, noise inside a centred disc of
+    half the area on zeros (background-heavy, as a FLAIR slice), or one
+    value."""
+    if kind == "constant":
+        return torch.full((n, h, w), 131, dtype=torch.uint8)
+    imgs = torch.randint(0, 256, (n, h, w), generator=gen, dtype=torch.uint8)
+    if kind == "background":
+        yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        inside = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < 0.5 * h * w / torch.pi
+        imgs = imgs * inside
+    return imgs
+
+
+CLAHE_CASES = [  # (kind, n, h, w, tiles_x, tiles_y)
+    *[(kind, 6, h, w, 8, 8) for kind in ("random", "background", "constant")
+      for h, w in ((182, 218), (182, 182), (218, 182))],
+    ("random", 3, 45, 230, 16, 4),  # two tiles a warp
+    ("background", 2, 37, 300, 20, 3),  # tiles_x not a multiple of the warps
+    ("random", 3, 70, 41, 3, 7),  # tiles_x != tiles_y
+    ("random", 5, 9, 11, 8, 8),  # 2 px tiles, bands past the image, 495 bytes
+    ("random", 3, 23, 28, 1, 1),
+]
+
+
+@pytest.mark.parametrize("kind,n,h,w,tiles_x,tiles_y", CLAHE_CASES)
+def test_clahe_kernels_equal_plain_on_image_kinds(cuda, kind, n, h, w, tiles_x, tiles_y):
+    gen = torch.Generator().manual_seed(n * h * w + tiles_x)
+    imgs = _clahe_images(kind, n, h, w, gen).to(cuda)
+    before = clahe.LAUNCHES, clahe.BLEND_LAUNCHES
+    luts = clahe.clahe_tile_luts(imgs, 2.0, tiles_x, tiles_y)
+    torch.cuda.synchronize()
+    assert clahe.LAUNCHES == before[0] + 1
+    assert luts.shape == (n, tiles_x * tiles_y, 256) and luts.dtype == torch.float32
+    want = clahe.clahe_tile_luts_ref(imgs, 2.0, tiles_x, tiles_y)
+    assert torch.equal(luts, want)
+    for out_map in (torch.from_numpy(enhance._LAB_BWD), torch.arange(256).flip(0)):
+        out_map = out_map.to(cuda, torch.uint8)
+        got = clahe.clahe_blend(imgs, luts, out_map, tiles_x, tiles_y)
+        torch.cuda.synchronize()
+        assert got.shape == imgs.shape and got.dtype == torch.uint8
+        assert torch.equal(got, clahe.clahe_blend_ref(imgs, want, out_map, tiles_x, tiles_y))
+    assert clahe.BLEND_LAUNCHES == before[1] + 2
+
+
+def test_clahe_kernels_take_an_unaligned_view(cuda):
+    """A view that starts off a 16-byte boundary (an image of 9 x 11 px)."""
+    gen = torch.Generator().manual_seed(5)
+    imgs = torch.randint(0, 256, (4, 9, 11), generator=gen, dtype=torch.uint8).to(cuda)[1:]
+    assert imgs.data_ptr() % 16 != 0
+    luts = clahe.clahe_tile_luts(imgs)
+    assert torch.equal(luts, clahe.clahe_tile_luts_ref(imgs))
+    out_map = torch.from_numpy(enhance._LAB_BWD).to(cuda)
+    got = clahe.clahe_blend(imgs, luts, out_map)
+    assert torch.equal(got, clahe.clahe_blend_ref(imgs, luts, out_map))
+
+
 def test_clahe_enhancement_on_the_card_equals_the_cpu(cuda):
     gen = torch.Generator().manual_seed(3)
     slices = torch.randn((4, 182, 218), generator=gen) * 150 + 500
     slices[1] = 7.0
     want = enhance.enhance_for_model(slices, "CLAHE")  # the plain version
-    before = clahe.LAUNCHES
+    before = clahe.LAUNCHES, clahe.BLEND_LAUNCHES
     got = enhance.enhance_for_model(slices.to(cuda), "CLAHE")
-    assert clahe.LAUNCHES == before + 1
+    assert (clahe.LAUNCHES, clahe.BLEND_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got.cpu(), want)
 
 
@@ -206,6 +264,29 @@ def test_clahe_wrapper_checks_its_inputs(cuda):
         clahe.clahe_tile_luts(imgs[0].to(cuda))
     with pytest.raises(ValueError):
         clahe.clahe_tile_luts(imgs.to(cuda), tiles_x=40)
+
+
+def test_clahe_blend_wrapper_checks_its_inputs(cuda):
+    imgs = torch.zeros((2, 32, 32), dtype=torch.uint8, device=cuda)
+    luts = torch.zeros((2, 64, 256), device=cuda)
+    out_map = torch.arange(256, device=cuda).to(torch.uint8)
+    with pytest.raises(ValueError, match="no kernel"):
+        clahe.clahe_blend(imgs.to("meta"), luts.to("meta"), out_map.to("meta"))
+    with pytest.raises(TypeError):
+        clahe.clahe_blend(imgs.float(), luts, out_map)
+    with pytest.raises(ValueError):
+        clahe.clahe_blend(imgs[0], luts, out_map)
+    with pytest.raises(ValueError):
+        clahe.clahe_blend(imgs, luts[:, :32], out_map)
+    with pytest.raises(ValueError):
+        clahe.clahe_blend(imgs, luts.double(), out_map)
+    with pytest.raises(ValueError):
+        clahe.clahe_blend(imgs, luts.cpu(), out_map)
+    with pytest.raises(ValueError):
+        clahe.clahe_blend(imgs, luts, out_map.long())
+    before = clahe.BLEND_LAUNCHES
+    clahe.clahe_blend(imgs, luts, out_map)
+    assert clahe.BLEND_LAUNCHES == before + 1
 
 
 # --------------------------------------------------------------------------

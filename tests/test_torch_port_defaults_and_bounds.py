@@ -11,7 +11,9 @@ wrapper's input preparation, on the CPU.
   each image's live-slot count.
 - ``chip_smoke.py`` counts the bytes and operations of the work it bounds
   from the shapes and, for the union, from the pixels the kept boxes hold;
-  ``tools/kernel_ab.py``'s ablations still find their text in the stem.
+  its background-heavy CLAHE inputs are about half zeros;
+  ``tools/kernel_ab.py``'s ablations still find their text in the stem and
+  the CLAHE source.
 """
 
 import inspect
@@ -163,3 +165,46 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     for name, subs in kernel_ab.ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
+
+
+def test_clahe_works_count_images_luts_and_output():
+    cs = _chip_smoke()
+    x = torch.zeros((3, 20, 30), dtype=torch.uint8)
+    luts = torch.zeros((3, 64, 256))
+    lut = cs.clahe_work(x, luts)
+    assert lut["bytes"] == 3 * 20 * 30 + 3 * 64 * 256 * 4
+    assert lut["ops"] == {"ops": 3 * 20 * 30 + 4.0 * 3 * 64 * 256}
+    blend = cs.blend_work(x, luts, x.clone())
+    assert blend["bytes"] == 2 * 3 * 20 * 30 + 3 * 64 * 256 * 4
+    assert blend["ops"] == {"ops": 10.0 * 3 * 20 * 30}
+    assert lut["bound_by"] == blend["bound_by"] == "bytes"
+    assert blend["bound_ms"] == pytest.approx(blend["bytes"] / cs.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("hw", [(182, 218), (182, 182), (218, 182)])
+def test_background_heavy_images_are_about_half_zeros(hw):
+    cs = _chip_smoke()
+    imgs = torch.randint(1, 256, (2,) + hw, dtype=torch.uint8)
+    out = cs.background_heavy(torch, imgs)
+    assert out.dtype == torch.uint8 and out.shape == imgs.shape
+    inside = out != 0
+    assert torch.equal(out[inside], imgs[inside])  # the disc keeps its pixels
+    assert 0.49 < float((~inside).float().mean()) < 0.51
+    assert not bool(inside[:, 0, 0].any()) and bool(inside[:, hw[0] // 2, hw[1] // 2].all())
+
+
+def test_kernel_ab_clahe_variants_still_match_the_clahe_source():
+    """Each variant's substitutions, applied in turn, each find their text
+    once in ``csrc/clahe_tile_lut.cu``; each blend ablation guards a loop
+    with a condition that never holds."""
+    from tpu_mslesseg_torch.tools import kernel_ab
+
+    text = (kernel_ab.CSRC / "clahe_tile_lut.cu").read_text()
+    for name, subs in kernel_ab.CLAHE_ABLATIONS.items():
+        src = text
+        for old, new in subs:
+            assert src.count(old) == 1, (name, old)
+            src = src.replace(old, new)
+        assert src != text
+        if name.startswith("clahe_blend"):
+            assert src.count(kernel_ab._NEVER) == len(subs)

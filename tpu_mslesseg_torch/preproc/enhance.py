@@ -5,8 +5,8 @@ reference's OpenCV chains collapse to 1-D maps on grayscale slices):
 
 * HE — ``cv2.equalizeHist`` on the luma channel;
 * CLAHE — clip 2.0, 8x8 tiles on the LAB L channel: the fixed-point L
-  maps, the tile LUTs (``preproc/clahe.py``, a CUDA kernel on the card)
-  and the four-LUT bilinear blend;
+  maps, the tile LUTs and the four-LUT bilinear blend (``preproc/clahe.py``,
+  two CUDA kernels on the card, the backward L map fused into the blend);
 * GC — the LUT ``uint8((linspace(0,1,256)**gamma)*255)``, gamma 2.0;
 * LT — ``c*log(1+v)`` with ``c = 255/log(1+max)`` per slice.
 """
@@ -107,55 +107,24 @@ def _lab_luts():
 _LAB_FWD, _LAB_BWD = _lab_luts()
 
 
-def _fma_f32(a, b, c):
-    """f32 ``a * b + c`` rounded once, as the reference's compiled program
-    computes it (XLA contracts the multiply and the add into one FMA). Here
-    the float64 product and sum are exact, so one rounding remains."""
-    return (a.to(torch.float64) * b.to(torch.float64) + c).to(torch.float32)
-
-
-def _clahe_core(l_imgs, clip_limit: float, tiles_x: int, tiles_y: int):
-    """OpenCV's CLAHE on each uint8 image of [N, H, W]: the tile LUTs
-    (kernel on the card), then the four-LUT bilinear blend, rounded half
-    to even, clipped and cast to uint8.
-
-    The blend's float32 arithmetic is the reference's compiled program's:
-    ``x / tile - 0.5`` is a multiply by the float32 reciprocal fused with
-    the subtraction, and each ``a*u + b*v`` is ``fma(a, u, b*v)``."""
-    n, H, W = l_imgs.shape
-    th, tw, _, _ = clahe.tile_geometry(H, W, clip_limit, tiles_x, tiles_y)
+def _clahe_core(l_imgs, out_map, clip_limit: float, tiles_x: int, tiles_y: int):
+    """OpenCV's CLAHE on each uint8 L image of [N, H, W]: the tile LUTs and
+    the four-LUT bilinear blend, rounded half to even and clipped, each
+    pixel then mapped through `out_map` [256] uint8. Both steps are CUDA
+    kernels on the card (``preproc/clahe.py``)."""
     luts = clahe.clahe_tile_luts(l_imgs, clip_limit, tiles_x, tiles_y)
-    dev = l_imgs.device
-
-    def coords(size, tile, count):
-        recip = torch.tensor(np.float32(1.0 / tile), device=dev)
-        f = _fma_f32(torch.arange(size, dtype=torch.float32, device=dev), recip, -0.5)
-        i = torch.floor(f).to(torch.long)
-        return f - i, i.clamp(0, count - 1), (i + 1).clamp(0, count - 1)
-
-    ya, ty1, ty2 = coords(H, th, tiles_y)
-    xa, tx1, tx2 = coords(W, tw, tiles_x)
-    ya, xa = ya[:, None], xa[None, :]
-    v = l_imgs.long().reshape(n, -1)
-    flat = luts.reshape(n, -1)
-
-    def gather(ty, tx):  # luts[n, ty[y], tx[x], v[n, y, x]]
-        at = ((ty[:, None] * tiles_x + tx[None, :]) * 256).reshape(1, -1)
-        return flat.gather(1, at + v).reshape(n, H, W)
-
-    top = _fma_f32(gather(ty1, tx1), 1 - xa, gather(ty1, tx2) * xa)
-    bottom = _fma_f32(gather(ty2, tx1), 1 - xa, gather(ty2, tx2) * xa)
-    res = _fma_f32(top, 1 - ya, bottom * ya)
-    return torch.round(res).clamp(0, 255).to(torch.uint8)
+    return clahe.clahe_blend(l_imgs, luts, out_map, tiles_x, tiles_y)
 
 
 def clahe_batch(imgs_u8, clip_limit: float = 2.0, tiles_x: int = 8, tiles_y: int = 8):
-    """The reference's CLAHE chain: gray -> LAB L -> CLAHE -> back to gray."""
+    """The reference's CLAHE chain: gray -> LAB L -> CLAHE -> back to gray
+    (the backward map fused into the blend)."""
     dev = imgs_u8.device
     fwd = torch.from_numpy(_LAB_FWD).to(dev)
     bwd = torch.from_numpy(_LAB_BWD).to(dev)
-    out = _clahe_core(fwd[imgs_u8.long()], clip_limit, tiles_x, tiles_y)
-    return bwd[out.long()]
+    # PyTorch reads a uint8 index tensor as a mask: int32 indices, not int64
+    l_imgs = fwd.index_select(0, imgs_u8.reshape(-1).to(torch.int32)).reshape(imgs_u8.shape)
+    return _clahe_core(l_imgs, bwd, clip_limit, tiles_x, tiles_y)
 
 
 _KERNELS = {

@@ -1,22 +1,35 @@
 """A/B timing of the port's CUDA kernel sources in one process on one card.
 
     python -m tpu_mslesseg_torch.tools.kernel_ab [--parent DIR] [--ablate]
+        [--kernels stem,mask_union,clahe]
 
-Builds each variant of ``csrc/stem.cu`` and ``csrc/mask_union.cu`` with
-``nvcc`` (the flags of ``_build``) into a temporary directory and times the
-bf16 paths on the same seeded inputs at the main path's launch shapes: the
-stem at 200 and 600 images of 640, the union at 200 images with about 225
-kept detections each (a CLAHE dispatch's per-plane launch) and at 600 with
-about 85 (a GC dispatch's one launch). Each variant is timed in blocks of
-CUDA-event-timed launches, in the order A, B, ..., B, A twice after a
-warm-up. Prints the card's name and power limit, then one JSON line per
-kernel and shape: each variant's median ms, its blocks, and its largest
-difference from this tree's kernel.
+Builds each variant of ``csrc/stem.cu``, ``csrc/mask_union.cu`` and
+``csrc/clahe_tile_lut.cu`` with ``nvcc`` (the flags of ``_build``) into a
+temporary directory and times them on the same seeded inputs at the main
+path's launch shapes: the bf16 stem at 200 and 600 images of 640; the bf16
+union at 200 images with about 225 kept detections each (a CLAHE
+dispatch's per-plane launch) and at 600 with about 85 (a GC dispatch's one
+launch); the CLAHE tile LUTs and the CLAHE blend at 200 L images of each
+plane shape (a CLAHE dispatch's three launches), uniform noise and
+background-heavy (the noise inside a centred disc of half the area, zeros
+around it), the blend beside its plain version. Each variant is timed in
+blocks of CUDA-event-timed launches, in the order A, B, ..., B, A twice
+after a warm-up. Prints the card's name and power limit, then one JSON line
+per kernel and shape: each variant's median ms, its blocks, and its
+largest difference from this tree's kernel.
 
 - ``--parent DIR``: also the kernels of another tree (an unpacked ``git
   archive`` of the parent commit), each through its own C interface.
-- ``--ablate``: also copies of this tree's stem with one part of its work
-  taken out (their outputs are wrong by design): what each part costs.
+- ``--ablate``: also copies of this tree's stem, tile-LUT and blend
+  kernels with one part of their work taken out (their outputs are wrong by
+  design): what each part costs; and the tile-LUT kernel with equal values
+  aggregated across a warp (``__match_any_sync``) before the histogram's
+  atomics (the same LUTs by another route).
+
+The CLAHE kernels take less time than the host takes to launch them, so
+their lines also carry ``graph_ms``: the device time of a launch, from
+replays of a CUDA graph of 20 launches.
+- ``--kernels``: which of the three sources to time (all by default).
 """
 
 from __future__ import annotations
@@ -69,6 +82,47 @@ ABLATIONS = {
     "stem_without_input_reads": _INPUT,
     "stem_without_output_writes": _STORE,
 }
+# CLAHE variants, all built from clahe_tile_lut.cu: the tile LUTs with equal
+# values aggregated across the warp before the histogram's atomics
+# (__match_any_sync; the leader adds the group's count: the same LUTs by
+# another route), and ablations of either kernel (wrong outputs by design;
+# `ry < 0.0f` never holds, so a loop guarded by it does no work)
+_NEVER = " && ry < 0.0f"
+CLAHE_ABLATIONS = {
+    "clahe_tile_lut_match_any": ((
+        """      if (s * 32 + lane < area) {
+        atomicAdd(&hist[band[r * w + reflect101(x0 + c, w)]], 1);
+      }""",
+        """      {
+        const bool valid = s * 32 + lane < area;
+        const int v = valid ? band[r * w + reflect101(x0 + c, w)] : -1;
+        const unsigned peers = __match_any_sync(kFull, v);
+        if (valid && lane == __ffs(peers) - 1) atomicAdd(&hist[v], __popc(peers));
+      }""",
+    ),),
+    "clahe_tile_lut_without_histogram": ((
+        "atomicAdd(&hist[band[r * w + reflect101(x0 + c, w)]], 1);", ";"),),
+    "clahe_tile_lut_without_staging": ((
+        "if (inside > 0) copy_bytes(", "if (inside < 0) copy_bytes("),),
+    "clahe_tile_lut_without_stores": ((
+        "    dst[0] = make_float4(out[0], out[1], out[2], out[3]);",
+        "    if (scale < 0.0f) dst[0] = make_float4(out[0], out[1], out[2], out[3]);"), (
+        "    dst[1] = make_float4(out[4], out[5], out[6], out[7]);",
+        "    if (scale < 0.0f) dst[1] = make_float4(out[4], out[5], out[6], out[7]);"),),
+    "clahe_blend_without_lut_rows": ((
+        "k < 2 * per_row; k += blockDim.x", f"k < 2 * per_row{_NEVER}; k += blockDim.x"),),
+    "clahe_blend_without_table": ((
+        "k < (tiles_x + 1) * kBins; k += blockDim.x",
+        f"k < (tiles_x + 1) * kBins{_NEVER}; k += blockDim.x"),),
+    "clahe_blend_without_pixels": ((
+        "(k << 4) < e; k += blockDim.x) {\n    const size_t a = k << 4;\n    const size_t first",
+        f"(k << 4) < e{_NEVER}; k += blockDim.x) {{\n    const size_t a = k << 4;\n"
+        "    const size_t first"),),
+}
+CLAHE_ABLATIONS["clahe_tile_lut_launch_only"] = sum(
+    (CLAHE_ABLATIONS[f"clahe_tile_lut_without_{p}"] for p in ("histogram", "staging", "stores")), ())
+CLAHE_ABLATIONS["clahe_blend_launch_only"] = sum(
+    (CLAHE_ABLATIONS[f"clahe_blend_without_{p}"] for p in ("lut_rows", "table", "pixels")), ())
 
 
 def _build_lib(args):
@@ -91,7 +145,36 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _compare(runs: dict, reps: int) -> dict:
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms of one `fn(stream)` launch: `reps` launches on a side
+    stream captured in one CUDA graph, the median of three replays after a
+    warm-up, over `reps`. Free of the host's cost of a launch, which exceeds
+    a CLAHE kernel's time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn(side.cuda_stream)
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def _compare(runs: dict, reps: int, graph=()) -> dict:
+    """Each run's median ms over blocks of `reps` event-timed calls in the
+    order A, B, ..., B, A twice; for the runs named in `graph` (which take
+    the stream to launch on), also their `graph_ms`."""
     for fn in runs.values():
         fn()
     blocks = {k: [] for k in runs}
@@ -99,7 +182,10 @@ def _compare(runs: dict, reps: int) -> dict:
     for _ in range(2):
         for k in order:
             blocks[k].append(_ms(runs[k], reps))
-    return {k: {"median_ms": float(np.median(v)), "blocks_ms": v} for k, v in blocks.items()}
+    res = {k: {"median_ms": float(np.median(v)), "blocks_ms": v} for k, v in blocks.items()}
+    for k in graph:
+        res[k]["graph_ms"] = _graph_ms(runs[k], reps)
+    return res
 
 
 def _stem_runs(libs, x, weights, stream):
@@ -137,11 +223,91 @@ def _union_runs(libs, sources, proto, coef, boxes, keep, stream):
     return runs, outs
 
 
+def _clahe_images(gen, n, h, w, kind, dev):
+    imgs = torch.randint(0, 256, (n, h, w), generator=gen, dtype=torch.uint8)
+    if kind == "background":
+        yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        imgs = imgs * ((yy - h / 2) ** 2 + (xx - w / 2) ** 2 < 0.5 * h * w / np.pi)
+    return imgs.to(dev)
+
+
+def _clahe_runs(libs, imgs, stream):
+    """Each library's tile-LUT kernel on `imgs` (8 x 8 tiles, clip 2.0)."""
+    from tpu_mslesseg_torch.preproc import clahe
+
+    n, h, w = imgs.shape
+    th, tw, area, limit = clahe.tile_geometry(h, w)
+    runs, outs = {}, {}
+    for name, lib in libs.items():
+        fn = lib.clahe_tile_luts
+        fn.argtypes = [P, P, I, I, I, I, I, I, I, I, F, P]
+        out = outs[name] = torch.empty((n, 64, 256), device=imgs.device)
+        args = [imgs.data_ptr(), out.data_ptr(), n, h, w, 8, 8, th, tw, limit,
+                float(clahe.lut_scale(area))]
+        runs[name] = lambda st=stream, fn=fn, args=args: fn(*args, st)
+    return runs, outs
+
+
+def _blend_runs(libs, imgs, luts, out_map, stream):
+    """Each library's blend kernel on `imgs` and their LUTs."""
+    from tpu_mslesseg_torch.preproc import clahe
+
+    n, h, w = imgs.shape
+    th, tw, _, _ = clahe.tile_geometry(h, w)
+    runs, outs = {}, {}
+    for name, lib in libs.items():
+        fn = lib.clahe_blend
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, F, P]
+        out = outs[name] = torch.empty_like(imgs)
+        args = [imgs.data_ptr(), luts.data_ptr(), out_map.data_ptr(), out.data_ptr(), n, h, w,
+                8, 8, th, tw, float(clahe._recip(th)), float(clahe._recip(tw))]
+        runs[name] = lambda st=stream, fn=fn, args=args: fn(*args, st)
+    return runs, outs
+
+
+def _time_clahe(libs, gen, dev, stream):
+    """The tile-LUT kernels of `libs` (this tree's, the parent's, the
+    variants) on 200 L images of each plane shape, then this tree's blend
+    and its ablations beside the plain blend; the kernels also graph-timed."""
+    from tpu_mslesseg_torch.preproc import clahe, enhance
+
+    out_map = torch.from_numpy(enhance._LAB_BWD).to(dev)
+    lut_libs = {n: lib for n, lib in libs.items() if n.startswith("clahe_tile_lut")}
+    blend_libs = {"clahe_blend": libs["clahe_tile_lut"],
+                  **{n: lib for n, lib in libs.items() if n.startswith("clahe_blend")}}
+    for kind in ("random", "background"):
+        for h, w in ((182, 218), (182, 182), (218, 182)):
+            imgs = _clahe_images(gen, 200, h, w, kind, dev)
+            runs, outs = _clahe_runs(lut_libs, imgs, stream)
+            res = _compare(runs, 20, graph=list(runs))
+            for name in res:
+                res[name]["max_diff"] = float((outs[name] - outs["clahe_tile_lut"]).abs().max())
+            print(json.dumps({"kernel": "clahe_tile_lut", "images": kind, "n": 200, "hw": [h, w],
+                              "variants": res}), flush=True)
+            luts = outs["clahe_tile_lut"]
+            runs, outs = _blend_runs(blend_libs, imgs, luts, out_map, stream)
+            kernels = list(runs)
+            runs["clahe_blend_plain"] = lambda: clahe.clahe_blend_ref(imgs, luts, out_map)
+            res = _compare(runs, 20, graph=kernels)
+            outs["clahe_blend_plain"] = clahe.clahe_blend_ref(imgs, luts, out_map)
+            for name in res:
+                res[name]["max_diff"] = float(
+                    (outs[name].int() - outs["clahe_blend"].int()).abs().max())
+            print(json.dumps({"kernel": "clahe_blend", "images": kind, "n": 200, "hw": [h, w],
+                              "variants": res}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, help="root of another tree to time beside this one")
-    ap.add_argument("--ablate", action="store_true", help="also time the stem's ablations")
+    ap.add_argument("--ablate", action="store_true",
+                    help="also time the kernels' ablations and the match-any tile LUTs")
+    ap.add_argument("--kernels", default="stem,mask_union,clahe",
+                    help="comma-separated sources to time: stem, mask_union, clahe")
     args = ap.parse_args(argv)
+    which = set(args.kernels.split(","))
+    if not which <= {"stem", "mask_union", "clahe"}:
+        raise SystemExit(f"kernel_ab: unknown kernels {sorted(which)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA device")
     dev = torch.device("cuda")
@@ -151,23 +317,29 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
         tmp = Path(tmp)
-        stem_src = {"stem": CSRC / "stem.cu"}
-        union_src = {"mask_union": CSRC / "mask_union.cu"}
+        stem_src = {"stem": CSRC / "stem.cu"} if "stem" in which else {}
+        union_src = {"mask_union": CSRC / "mask_union.cu"} if "mask_union" in which else {}
+        clahe_src = {"clahe_tile_lut": CSRC / "clahe_tile_lut.cu"} if "clahe" in which else {}
         if args.parent:
             parent = args.parent / "tpu_mslesseg_torch" / "csrc"
-            stem_src["stem_parent"] = parent / "stem.cu"
-            union_src["mask_union_parent"] = parent / "mask_union.cu"
+            for srcs in (stem_src, union_src, clahe_src):
+                for name in list(srcs):
+                    srcs[f"{name}_parent"] = parent / srcs[name].name
         if args.ablate:
-            text = stem_src["stem"].read_text()
-            for name, subs in ABLATIONS.items():
-                src = text
-                for old, new in subs:
-                    if src.count(old) != 1:
-                        raise RuntimeError(f"{name}: the stem source no longer holds {old!r}")
-                    src = src.replace(old, new)
-                stem_src[name] = tmp / f"{name}.cu"
-                stem_src[name].write_text(src)
-        jobs = [(n, s, tmp) for n, s in {**stem_src, **union_src}.items()]
+            for srcs, base, ablations in ((stem_src, "stem", ABLATIONS),
+                                          (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS)):
+                if not srcs:
+                    continue
+                text = srcs[base].read_text()
+                for name, subs in ablations.items():
+                    src = text
+                    for old, new in subs:
+                        if src.count(old) != 1:
+                            raise RuntimeError(f"{name}: {base}.cu no longer holds {old!r}")
+                        src = src.replace(old, new)
+                    srcs[name] = tmp / f"{name}.cu"
+                    srcs[name].write_text(src)
+        jobs = [(n, s, tmp) for n, s in {**stem_src, **union_src, **clahe_src}.items()]
         with ThreadPoolExecutor(len(jobs)) as pool:
             libs = dict(pool.map(_build_lib, jobs))
 
@@ -179,7 +351,7 @@ def main(argv=None) -> int:
         for i in (4, 9):  # running variances
             weights[i] = weights[i].abs() + 0.5
         weights = [t.to(dev).contiguous() for t in weights]
-        for m in (200, 600):
+        for m in (200, 600) if stem_src else ():
             x = torch.rand((m, 640, 640), generator=gen).to(dev, torch.bfloat16)
             runs, outs = _stem_runs({n: libs[n] for n in stem_src}, x, weights, stream)
             res = _compare(runs, 5)
@@ -188,7 +360,7 @@ def main(argv=None) -> int:
             print(json.dumps({"kernel": "stem", "m": m, "imgsz": 640, "variants": res}), flush=True)
             del x, runs, outs
 
-        for n, keep_share in ((200, 0.75), (600, 0.283)):
+        for n, keep_share in ((200, 0.75), (600, 0.283)) if union_src else ():
             k = 300
             proto = torch.randn((n, 160, 160, 32), generator=gen).to(dev, torch.bfloat16)
             coef = torch.randn((n, k, 32), generator=gen).to(dev, torch.bfloat16)
@@ -204,6 +376,8 @@ def main(argv=None) -> int:
             print(json.dumps({"kernel": "mask_union", "n": n, "k": k,
                               "kept_per_image": float(keep.sum()) / n, "variants": res}),
                   flush=True)
+        if clahe_src:
+            _time_clahe({n: libs[n] for n in clahe_src}, gen, dev, stream)
     return 0
 
 
