@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (the CLI phases also print the
+pipeline's log lines):
 
 0. device: the card's name and power limit; builds the CUDA sources of the
    four kernels (one ``nvcc`` a source, started together; the two CLAHE
@@ -74,10 +75,47 @@ Phases, each printing one JSON line:
    versions, with the tile-LUT kernel and the plain blend, and with both
    kernels, timed in turns; the three results are equal.
 
+9. cli_chain: the orchestrator CLI through the stage chain. A dataset tree
+   ``MSLesSeg-Dataset/train`` with four synthetic 182x218x182 patients (a
+   60-slice lesion box, so stage 1 keeps 50 lesion slices a plane),
+   ``k_folds=2`` (two patients a fold), FLAIR, ``--mejora CLAHE``,
+   ``--num_cortes 50``, a ``best.pt`` for 3 planes x 2 folds, in a temporary
+   directory; ``ejecutar_pipeline.main([... "--completo", "--sin_rapido"])``
+   in-process for axial, coronal and sagital in turn (stage 0 builds the
+   GT tree, then stages 1, 3, 4, 6 a plane, and 5, 6, 7 after the third).
+   Checks the whole artifact tree, that the consensus waited for the third
+   plane, that all four kernels launched, that one patient's stage-1 image
+   PNGs equal the same enhancement on the CPU, its stage-3 masks a direct
+   ``SlicePredictor`` call on the same enhanced slices and its stage-4
+   volumes ``reconstruct_volume`` of them, that each of the four kernels
+   agrees with its plain version on that patient's own stage-3 tensors (50
+   images a launch, where the earlier phases hold them at 200 and 600; the
+   bounds of phases 1, 4 and 5), timed there too, that every consensus volume is
+   the vote of the three plane volumes on disk and every patient JSON the
+   metrics of the counts of the volume beside it, and that a second run of
+   one plane writes nothing. Then stage 3 of one fold again (``limpiar``)
+   with ``PIPELINE_DEPTH`` 4 and 1 in turns, timed.
+10. cli_default: ``main([... "--completo"])`` for the three planes on a copy
+   of phase 9's inputs and stage-1 output: ``rapido`` serves each fold and
+   the chain reduces to skips and aggregation. Checks the volume and JSON
+   tree and the four launch counts, and reports each patient's Dice against
+   phase 9's volumes (bf16 results depend on the batch: the chain serves 50
+   slices a call, ``rapido`` 200 a plane) and both phases' stage timings.
+
+An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
+with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
+phase 2's slices: all must be equal (LT floors ``c*log1p(x)``, so a
+one-ulp difference between the card's ``log1p`` and the CPU's would show
+as a one-level flip).
+
 Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
 the CLAHE kernels' background-heavy ms, the bound and what bounds it;
-``library_ms`` is null, as no single PyTorch call computes any of the four
-functions), the card's ``nvidia-smi`` name and power limit, and last
+``launches`` counts phase 6's fold, which those times belong to,
+``launches_by_path`` each driven path's, and ``cli_chain`` holds phase 9's
+launches with the kernel's and the plain version's ms and the bound for one
+patient's three launches of 50 images; ``library_ms`` is null, as no single
+PyTorch call computes any of the four functions), the card's ``nvidia-smi`` name and power limit,
+and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises and the script exits non-zero; without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any result.
@@ -88,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -102,6 +141,12 @@ VOL_SHAPE = (182, 218, 182)
 PLANES = ("axial", "coronal", "sagital")
 PATIENTS = ("P39", "P18", "P07", "P12")  # the last serves 45 slices per plane
 FOLD_PATIENTS = ("P1", "P2", "P3", "P4", "P5")  # fold 1 of 5; the last serves 45
+CLI_PATIENTS = {"P1": 1, "P2": 1, "P28": 2, "P29": 2}  # patient -> fold of 2
+CLI_K_FOLDS = 2
+# the CLI phases' lesion box: 60 lesion slices a plane, of which stage 1
+# keeps the centred N_PER_PLANE
+CLI_LESION = (slice(60, 120), slice(80, 140), slice(60, 120))
+CLI_CHECKED = "P2"  # the patient held against the direct calls
 N_PER_PLANE = 50
 N_SHORT = 45
 IMGSZ = 640
@@ -112,6 +157,7 @@ ATOL, RTOL = 1e-4, 1e-5  # the FMA union kernel (f32 coefficients)
 STEM_TOL = 2e-5
 NEAR_THRESHOLD = 1e-3
 MIN_DICE = 0.99
+MIN_CHAIN_RAPIDO_DICE = 0.9  # the same patient through the chain and through rapido
 # kernel -> (its CUDA source, the Pallas kernel body it replaces)
 KERNEL_SOURCES = {
     "mask_union": ("tpu_mslesseg_torch/csrc/mask_union.cu",
@@ -149,12 +195,13 @@ def card_label(torch) -> dict:
     return {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else ""}
 
 
-def patient_volume(pid: str):
-    """The benchmark's synthetic patient (bench.py's fallback recipe)."""
+def patient_volume(pid: str, lesion=(slice(80, 100), slice(100, 130), slice(70, 110))):
+    """The benchmark's synthetic patient (bench.py's fallback recipe), the
+    mask a box over `lesion`."""
     rng = np.random.default_rng(zlib.crc32(pid.encode()))
     vol = rng.normal(500, 150, VOL_SHAPE).astype(np.float64)
     mask = np.zeros(VOL_SHAPE)
-    mask[80:100, 100:130, 70:110] = 1
+    mask[lesion] = 1
     return vol, mask
 
 
@@ -495,6 +542,347 @@ def write_experiment(root: Path, geometry, torch, modelo_cls, save_checkpoint,
     return modelo["axial"]
 
 
+
+def cli_args(plano: str, *extra) -> list:
+    return ["--plano", plano, "--modalidad", "FLAIR", "--num_cortes", str(N_PER_PLANE),
+            "--mejora", "CLAHE", "--epochs", str(EPOCHS), "--k_folds", str(CLI_K_FOLDS),
+            "--completo", *extra]
+
+
+def run_cli(orch, root: Path, plano: str, *extra) -> None:
+    """The orchestrator's ``main`` in-process from `root`, as ``python -m
+    tpu_mslesseg_torch.pipeline.ejecutar_pipeline`` runs it there. A failed
+    run raises ``SystemExit(1)``, which ends this script with that code."""
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        orch.main(cli_args(plano, *extra))
+    finally:
+        os.chdir(cwd)
+
+
+def write_cli_inputs(root: Path, P) -> dict:
+    """Phase 9's inputs under `root`: the dataset (FLAIR and mask volumes;
+    stage 0 builds ``GT/`` from them) and a ``best.pt`` per plane and fold,
+    one seed a plane. Returns {plane: Modelo}."""
+    ds = root / "MSLesSeg-Dataset" / "train"
+    modelo = {p: P.Modelo(plano=p, num_cortes=N_PER_PLANE, modalidad=["FLAIR"],
+                          k_folds=CLI_K_FOLDS, mejora="CLAHE") for p in PLANES}
+    for pid in CLI_PATIENTS:
+        vol, gt = patient_volume(pid, CLI_LESION)
+        P.nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
+        P.nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
+    model, _ = P.create_model(nc=1, scale="n")
+    for k, p in enumerate(PLANES):
+        sd = P.init_variables(model, seed=20 + k)
+        for i in range(len(P.STRIDES)):  # no class prior: NMS keeps detections
+            sd[f"model.23.cv3.{i}.2.bias"].zero_()
+        for fold in sorted(set(CLI_PATIENTS.values())):
+            cfg = P.ConfigTrain(modelo=modelo[p], epochs=EPOCHS, fold_test=fold, root=root)
+            P.save_checkpoint(cfg.best_ckpt, sd)
+    return modelo
+
+
+def tree(root: Path, *tops) -> set:
+    return {p.relative_to(root) for d in tops for p in (root / d).rglob("*") if p.is_file()}
+
+
+def expected_cli_tree(root: Path, P, modelo, pred_masks: bool) -> tuple:
+    """(files under datasets/, files under pred_vols/ and results/) a
+    complete three-plane run leaves, and {(pid, plane): slice indices}."""
+    exp = f"{modelo['axial'].base_path}_{EPOCHS}epochs"
+    kinds = PLANES + ("consenso",)
+    data, out, indices = set(), set(), {}
+    for pid, fold in CLI_PATIENTS.items():
+        for p in PLANES:
+            pac = P.Paciente(id=pid, plano=p, modalidad=["FLAIR"],
+                             dataset_dir=root / "MSLesSeg-Dataset" / "train")
+            ids = indices[pid, p] = pac.indices_a_usar(N_PER_PLANE)
+            d = Path("datasets") / modelo[p].base_path / f"fold{fold}" / pid / p
+            for i in ids:
+                data |= {d / "images" / f"{pid}_FLAIR_{i}.png", d / "GT_masks" / f"{pid}_{i}.png",
+                         d / "labels" / f"{pid}_{i}.txt"}
+                if pred_masks:
+                    data.add(d / "pred_masks" / f"{pid}_FLAIR_{i}.png")
+        for k in kinds:
+            out |= {Path("pred_vols") / exp / f"fold{fold}" / pid / f"{pid}_{k}.nii.gz",
+                    Path("results") / exp / f"fold{fold}" / pid / f"{pid}_{k}_results.json"}
+    for k in kinds:
+        out.add(Path("results") / exp / f"global_{k}_results.json")
+        for fold in set(CLI_PATIENTS.values()):
+            out.add(Path("results") / exp / f"fold{fold}" / f"fold{fold}_{k}_results.json")
+    return data, out, indices
+
+
+def check_tree(got: set, want: set, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: extra {sorted(map(str, got - want))[:8]}, "
+                             f"missing {sorted(map(str, want - got))[:8]}")
+
+
+def check_volumes_and_jsons(torch, root: Path, P, modelo, dev) -> dict:
+    """Every volume on disk is binary and of the GT's shape, every consensus
+    is the vote of its three plane volumes, and every patient JSON holds the
+    metrics of the counts of the volume beside it. Returns the volumes
+    {(pid, kind): uint8 array}."""
+    exp = f"{modelo['axial'].base_path}_{EPOCHS}epochs"
+    vols = {}
+    for pid, fold in CLI_PATIENTS.items():
+        gt = P.nifti.load(root / "GT" / "train" / pid / f"{pid}_MASK.nii.gz").data
+        if gt.shape != VOL_SHAPE:
+            raise AssertionError(f"{pid}: GT of shape {gt.shape}")
+        gt_dev = torch.from_numpy(np.ascontiguousarray(gt)).to(dev)
+        on_dev = {}
+        for k in PLANES + ("consenso",):
+            img = P.nifti.load(root / "pred_vols" / exp / f"fold{fold}" / pid / f"{pid}_{k}.nii.gz")
+            if img.shape != VOL_SHAPE or not np.isin(img.data, (0, 1)).all() or not img.data.any():
+                raise AssertionError(f"{pid}/{k}: not a filled binary volume of the GT's shape")
+            if not np.array_equal(img.affine, np.eye(4)):
+                raise AssertionError(f"{pid}/{k}: the affine is not the GT's")
+            vols[pid, k] = img.data.astype(np.uint8)
+            on_dev[k] = torch.from_numpy(vols[pid, k]).to(dev)
+            met = json.loads((root / "results" / exp / f"fold{fold}" / pid
+                              / f"{pid}_{k}_results.json").read_text())
+            want = P.mx.metrics_from_counts(P.mx.confusion_counts(gt_dev, on_dev[k]))
+            if json.dumps(met) != json.dumps(want):
+                raise AssertionError(f"{pid}/{k}: JSON {met} != metrics of the volume {want}")
+        vote = P.consensus_vote(*(on_dev[p] for p in PLANES), 2)
+        if not torch.equal(vote, on_dev["consenso"]):
+            raise AssertionError(f"{pid}: the consensus is not the vote of the plane volumes")
+    return vols
+
+
+def phase_enhancement(torch, enhance, slices, dev) -> None:
+    """``enhance_batch`` on the card against the same call on the CPU, on
+    phase 2's slices."""
+    differing, px = {}, 0
+    for p in PLANES:
+        x = torch.from_numpy(slices[p].reshape((-1,) + slices[p].shape[2:]).astype(np.float32))
+        px += x.numel()
+        for mejora in (None, "HE", "GC", "CLAHE", "LT"):
+            card = enhance.enhance_batch(x.to(dev), mejora).cpu()
+            host = enhance.enhance_batch(x, mejora)
+            key = mejora or "none"
+            differing[key] = differing.get(key, 0) + int((card != host).sum())
+    emit({"phase": "enhancement", "what": "enhance_batch on the card vs on the CPU",
+          "pixels": px, "px_differing": differing})
+    if any(differing.values()):
+        raise AssertionError(f"enhancement differs between card and CPU: {differing}")
+
+
+def chain_kernel_checks(torch, P, pred, raw) -> dict:
+    """The four kernels against their plain versions at the shapes one
+    stage-3 call gives them (`raw`: one patient's slices of one plane on
+    the card, `pred` the plane's ``SlicePredictor``), on that call's own
+    tensors, and their times there: {kernel: {"errs", "ms", "plain_ms",
+    "work"}}. Raises where a kernel disagrees."""
+    dev, smodel, out = raw.device, pred.model, {}
+    # CLAHE: the L images of the enhancement that stages 1 and 3 run
+    bwd = torch.from_numpy(P.enhance._LAB_BWD).to(dev)
+    l_img = torch.from_numpy(P.enhance._LAB_FWD).to(dev)[P.enhance.normalize_to_uint8(raw).long()]
+    luts, want = P.clahe.clahe_tile_luts(l_img), P.clahe.clahe_tile_luts_ref(l_img)
+    got_b, want_b = P.clahe.clahe_blend(l_img, luts, bwd), P.clahe.clahe_blend_ref(l_img, want, bwd)
+    torch.cuda.synchronize()
+    if not torch.equal(luts, want):
+        raise AssertionError("CLAHE LUTs differ from the plain version on a stage-3 call's images")
+    if not torch.equal(got_b, want_b):
+        raise AssertionError("CLAHE blend differs from the plain version on a stage-3 call's images")
+    out["clahe_tile_lut"] = {
+        "errs": {"max_abs_err": 0.0}, "work": clahe_work(l_img, luts),
+        "ms": graph_ms(torch, lambda: P.clahe.clahe_tile_luts(l_img), 20),
+        "plain_ms": cuda_ms(torch, lambda: P.clahe.clahe_tile_luts_ref(l_img), 5)}
+    out["clahe_blend"] = {
+        "errs": {"max_abs_err": 0.0}, "work": blend_work(l_img, luts, got_b),
+        "ms": graph_ms(torch, lambda: P.clahe.clahe_blend(l_img, luts, bwd), 20),
+        "plain_ms": cuda_ms(torch, lambda: P.clahe.clahe_blend_ref(l_img, luts, bwd), 5)}
+    # the stem's input and the union's, as SlicePredictor.__call__ makes them
+    u8 = P.enhance.enhance_for_model(raw, "CLAHE")
+    x = pred.lb.apply(P.geometry.to_png_space_batch(u8).to(torch.float32) / 255.0).to(smodel.dtype)
+    got, want = P.stem.stem_apply(smodel, pred._stem_w, x), P.stem.stem_reference(smodel, pred._stem_w, x)
+    torch.cuda.synchronize()
+    errs = stem_errors(torch, P.stem, smodel, pred._stem_w, x, got, want)
+    k_ms, p_ms = timed_pair(torch, lambda: P.stem.stem_apply(smodel, pred._stem_w, x),
+                            lambda: P.stem.stem_reference(smodel, pred._stem_w, x), 5, 3)
+    out["stem"] = {"errs": errs, "work": stem_work(x, got), "ms": float(np.median(k_ms)),
+                   "plain_ms": float(np.median(p_ms))}
+    rec = Recorder(P.mu.mask_union_logits_batch)
+    with torch.inference_mode():
+        P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf, pred.iou,
+                           pred.max_det, mask_union=rec, stem_w=pred._stem_w)
+    call, got = rec.last[:5], rec.last[5]
+    want = P.mu.mask_union_logits_ref(*call)
+    torch.cuda.synchronize()
+    errs = check_union(torch, P.mu, call, got, want)
+    errs["kept_per_image"] = float(call[3].sum()) / call[3].shape[0]
+    k_ms, p_ms = timed_pair(torch, lambda: P.mu.mask_union_logits_batch(*call),
+                            lambda: P.mu.mask_union_logits_ref(*call), 10, 3)
+    out["mask_union"] = {"errs": errs, "work": union_work(torch, P.mu, *call, got),
+                         "ms": float(np.median(k_ms)), "plain_ms": float(np.median(p_ms))}
+    return out
+
+
+def phase_cli_chain(torch, P, root: Path, counters, dev) -> dict:
+    """Phase 9: three planes through ``main(... --completo --sin_rapido)``."""
+    t0 = time.perf_counter()
+    modelo = write_cli_inputs(root, P)
+    setup_s = time.perf_counter() - t0
+    exp = f"{modelo['axial'].base_path}_{EPOCHS}epochs"
+    P.profiling.reset_timings()
+    zero_launches(counters)
+    plane_s, consensus_after = {}, {}
+    for p in PLANES:
+        t0 = time.perf_counter()
+        run_cli(P.orch, root, p, "--sin_rapido")
+        torch.cuda.synchronize()
+        plane_s[p] = time.perf_counter() - t0
+        consensus_after[p] = sum("consenso" in f.name for f in tree(root, "pred_vols"))
+    launches = read_launches(counters)
+    timings = P.profiling.timings_summary()
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the CLI's stage chain did not launch the {k} kernel")
+    if [consensus_after[p] for p in PLANES] != [0, 0, len(CLI_PATIENTS)]:
+        raise AssertionError(f"consensus volumes after each plane: {consensus_after}")
+
+    want_data, want_out, indices = expected_cli_tree(root, P, modelo, pred_masks=True)
+    check_tree(tree(root, "datasets"), want_data, "datasets/")
+    check_tree(tree(root, "pred_vols", "results"), want_out, "pred_vols/ and results/")
+    if any(len(ids) != N_PER_PLANE for ids in indices.values()):
+        raise AssertionError("stage 1 did not keep 50 slices a plane")
+    vols = check_volumes_and_jsons(torch, root, P, modelo, dev)
+
+    # one patient against the direct calls, plane by plane
+    pid, fold = CLI_CHECKED, CLI_PATIENTS[CLI_CHECKED]
+    smodel, _, imgsz = P.create_model_from_env()
+    kept, at_call = 0.0, {}
+    for p in PLANES:
+        pac = P.Paciente(id=pid, plano=p, modalidad=["FLAIR"], mejora="CLAHE",
+                         dataset_dir=root / "MSLesSeg-Dataset" / "train")
+        ids = indices[pid, p]
+        raw = torch.from_numpy(pac.cortes_imagen_batch(ids, "FLAIR"))
+        d = root / "datasets" / modelo[p].base_path / f"fold{fold}" / pid / p
+        # stage 1 ran on the card: the same enhancement on the CPU
+        host = P.geometry.minmax_to_uint8(
+            P.geometry.to_png_space_batch(P.enhance.enhance_batch(raw, "CLAHE"))).numpy()
+        for j, i in enumerate(ids):
+            if not np.array_equal(P.png.load_gray(d / "images" / f"{pid}_FLAIR_{i}.png"), host[j]):
+                raise AssertionError(f"{pid}/{p}: stage-1 image {i} != the CPU's enhancement")
+        cfg = P.ConfigTrain(modelo=modelo[p], epochs=EPOCHS, fold_test=fold, root=root)
+        pred = P.SlicePredictor(smodel, P.load_checkpoint(cfg.best_ckpt), tuple(raw.shape[1:]),
+                                imgsz=imgsz, device=dev)
+        if pred._stem_w is None:
+            raise AssertionError("the direct predictor did not take the fused stem")
+        masks = pred(P.enhance.enhance_for_model(raw.to(dev), "CLAHE"))
+        stored = np.stack([P.png.load_pred_png(d / "pred_masks" / f"{pid}_FLAIR_{i}.png")
+                           for i in ids])
+        if not np.array_equal(stored > 0, masks.cpu().numpy()):
+            raise AssertionError(f"{pid}/{p}: stage-3 masks != a direct SlicePredictor call")
+        kept += float(masks.float().mean())
+        vol = P.reconstruct_volume(VOL_SHAPE, masks.to(torch.float32), p, ids)
+        if not np.array_equal(vol.cpu().numpy().astype(np.uint8), vols[pid, p]):
+            raise AssertionError(f"{pid}/{p}: stage-4 volume != reconstruct_volume of the masks")
+        # the kernels at this call's shapes (stage 3 serves a patient's 50
+        # slices a call, the earlier phases 200 or 600)
+        at_call[p] = chain_kernel_checks(torch, P, pred, raw.to(dev))
+    if not kept > 0:
+        raise AssertionError("the checked patient's masks are empty in every plane")
+
+    # a second run of one plane writes nothing
+    files = sorted(tree(root, "datasets", "pred_vols", "results"))
+    before = [(root / f).stat().st_mtime_ns for f in files]
+    t0 = time.perf_counter()
+    run_cli(P.orch, root, PLANES[0], "--sin_rapido")
+    rerun_s = time.perf_counter() - t0
+    if sorted(tree(root, "datasets", "pred_vols", "results")) != files or \
+            [(root / f).stat().st_mtime_ns for f in files] != before:
+        raise AssertionError("a second run of one plane wrote files")
+
+    # what PIPELINE_DEPTH buys: stage 3 of one fold again, depth 4 and 1 in turns
+    depth_s = {4: [], 1: []}
+    cfg = P.ConfigPred(modelo=modelo[PLANES[0]], epochs=EPOCHS, k_folds=CLI_K_FOLDS,
+                       fold_test=1, root=root)
+    for depth in (4, 1, 1, 4):
+        with switched(P.gen, "PIPELINE_DEPTH", depth):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = P.gen.ejecutar_flujo_pred(cfg, limpiar=True, device=dev)
+            torch.cuda.synchronize()
+            depth_s[depth].append(time.perf_counter() - t0)
+        if res is not True:
+            raise AssertionError(f"stage 3 with limpiar returned {res}")
+    P.logging_setup.configure_logging(log_file=None)  # let go of <root>/pipeline.log
+
+    # a patient's three stage-3 calls (one a plane), summed as one unit of work
+    per_call = {
+        k: {"work": f"stage 3 for one patient: 3 launches of {N_PER_PLANE} images, one a plane",
+            "launches_in_the_three_plane_runs": launches[k],
+            "max_abs_err": max(at_call[p][k]["errs"]["max_abs_err"] for p in PLANES),
+            "ms": sum(at_call[p][k]["ms"] for p in PLANES),
+            "plain_ms": sum(at_call[p][k]["plain_ms"] for p in PLANES),
+            **{key: v for key, v in summed([at_call[p][k]["work"] for p in PLANES]).items()
+               if key in ("bound_ms", "bound_by")}}
+        for k in KERNELS}
+
+    emit({"phase": "cli_chain", "mejora": "CLAHE", "patients": len(CLI_PATIENTS),
+          "k_folds": CLI_K_FOLDS, "slices_per_plane": N_PER_PLANE, "launches": launches,
+          "consensus_volumes_after_each_plane": consensus_after,
+          "files": {"datasets": len(want_data), "pred_vols_and_results": len(want_out)},
+          "checked_patient": pid, "second_run_wrote_nothing": True,
+          "kernels_vs_plain_at_a_stage3_call": {
+              k: {p: at_call[p][k]["errs"] for p in PLANES} for k in KERNELS},
+          "kernels_per_patient": per_call,
+          "informational": {"setup_s": setup_s, "plane_s": plane_s, "rerun_s": rerun_s,
+                            "stage_timings": timings,
+                            "stage3_fold_s_by_pipeline_depth": depth_s, **card_label(torch)}})
+    return {"modelo": modelo, "vols": vols, "launches": launches, "timings": timings,
+            "kernels": per_call}
+
+
+def phase_cli_default(torch, P, chain_root: Path, root: Path, chain: dict, counters, dev) -> dict:
+    """Phase 10: the three planes through ``main(... --completo)`` on a copy
+    of phase 9's inputs and stage-1 output."""
+    shutil.copytree(chain_root, root, ignore=shutil.ignore_patterns(
+        "pred_masks", "pred_vols", "results", "pipeline.log"))
+    modelo = chain["modelo"]
+    P.profiling.reset_timings()
+    zero_launches(counters)
+    plane_s = {}
+    for p in PLANES:
+        t0 = time.perf_counter()
+        run_cli(P.orch, root, p)
+        torch.cuda.synchronize()
+        plane_s[p] = time.perf_counter() - t0
+    launches = read_launches(counters)
+    timings = P.profiling.timings_summary()
+    P.logging_setup.configure_logging(log_file=None)
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the CLI's default path did not launch the {k} kernel")
+    folds = sorted(set(CLI_PATIENTS.values()))
+    if not all(f"rapido_fold{k}" in timings for k in folds) or \
+            any(name.startswith("predicciones_fold") for name in timings):
+        raise AssertionError(f"rapido did not serve every fold: {sorted(timings)}")
+
+    want_data, want_out, _ = expected_cli_tree(root, P, modelo, pred_masks=False)
+    check_tree(tree(root, "datasets"), want_data, "datasets/ (no prediction PNGs)")
+    check_tree(tree(root, "pred_vols", "results"), want_out, "pred_vols/ and results/")
+    vols = check_volumes_and_jsons(torch, root, P, modelo, dev)
+    dices = {pid: {k: dice(vols[pid, k], chain["vols"][pid, k]) for k in PLANES + ("consenso",)}
+             for pid in CLI_PATIENTS}
+    worst = min(d["consenso"] for d in dices.values())
+    emit({"phase": "cli_default", "mejora": "CLAHE", "patients": len(CLI_PATIENTS),
+          "launches": launches, "files": {"pred_vols_and_results": len(want_out)},
+          "dice_rapido_vs_chain": dices, "min_consensus_dice": MIN_CHAIN_RAPIDO_DICE,
+          "voxels_differing": {pid: {k: int((vols[pid, k] != chain["vols"][pid, k]).sum())
+                                     for k in PLANES + ("consenso",)} for pid in CLI_PATIENTS},
+          "informational": {"plane_s": plane_s, "stage_timings": timings,
+                            "chain_stage_timings": chain["timings"], **card_label(torch)}})
+    if worst < MIN_CHAIN_RAPIDO_DICE:
+        raise AssertionError(f"rapido vs chain: consensus Dice {worst} below "
+                             f"{MIN_CHAIN_RAPIDO_DICE}")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -508,22 +896,40 @@ def main() -> int:
         return 2
     os.environ.update(SERVING_ENV)  # read when the port's modules import
     sys.path.insert(0, str(ROOT))
+    import types
+
     from tpu_mslesseg_torch import _build
-    from tpu_mslesseg_torch.core import geometry
+    from tpu_mslesseg_torch.core import geometry, profiling
     from tpu_mslesseg_torch.evalx import metrics as mx
     from tpu_mslesseg_torch.infer import mask_union as mu
     from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
-    from tpu_mslesseg_torch.io import nifti
+    from tpu_mslesseg_torch.infer.predictor import SlicePredictor, detect_and_union
+    from tpu_mslesseg_torch.infer.reconstruct import consensus_vote, reconstruct_volume
+    from tpu_mslesseg_torch.io import nifti, png
     from tpu_mslesseg_torch.model import stem
     from tpu_mslesseg_torch.model.yolo11 import (
         STRIDES, create_model, create_model_from_env, fold_gray_stem, init_variables,
     )
-    from tpu_mslesseg_torch.pipeline import rapido
+    from tpu_mslesseg_torch.pipeline import ejecutar_pipeline as orch
+    from tpu_mslesseg_torch.pipeline import logging_setup, rapido
     from tpu_mslesseg_torch.pipeline.modelo import Modelo
     from tpu_mslesseg_torch.pipeline.paciente import Paciente
-    from tpu_mslesseg_torch.pipeline.paths import ConfigTrain
+    from tpu_mslesseg_torch.pipeline.paths import ConfigPred, ConfigTrain
+    from tpu_mslesseg_torch.pipeline.stages import generar_predicciones as gen_stage
     from tpu_mslesseg_torch.preproc import clahe, enhance
-    from tpu_mslesseg_torch.train.checkpoint import save_checkpoint
+    from tpu_mslesseg_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    # the port's modules the CLI phases use
+    P = types.SimpleNamespace(
+        Modelo=Modelo, Paciente=Paciente, ConfigTrain=ConfigTrain, ConfigPred=ConfigPred,
+        nifti=nifti, png=png, create_model=create_model,
+        create_model_from_env=create_model_from_env, init_variables=init_variables,
+        STRIDES=STRIDES, save_checkpoint=save_checkpoint, load_checkpoint=load_checkpoint,
+        mx=mx, consensus_vote=consensus_vote, reconstruct_volume=reconstruct_volume,
+        geometry=geometry, enhance=enhance, SlicePredictor=SlicePredictor,
+        profiling=profiling, orch=orch, gen=gen_stage, logging_setup=logging_setup,
+        mu=mu, stem=stem, clahe=clahe, detect_and_union=detect_and_union,
+    )
 
     dev = torch.device(DEVICE)
     # full f32 in the plain versions' matmuls and convolutions
@@ -590,7 +996,8 @@ def main() -> int:
     zero_launches(counters)
     counts, cons, vols = cp.lote(slices, idx, gts)
     torch.cuda.synchronize()
-    launches = read_launches(counters)["mask_union"]
+    gc_launches = read_launches(counters)  # the GC path holds the union kernel only
+    launches = gc_launches["mask_union"]
     if launches < 1:
         raise AssertionError("the main path did not launch the mask-union kernel")
 
@@ -673,6 +1080,8 @@ def main() -> int:
           "informational": {"dispatch_s": times,
                             "slices_per_s": real_slices / float(np.median(times)),
                             **card}})
+
+    phase_enhancement(torch, enhance, slices, dev)
 
     # ---- phase 3: union kernel vs plain time on phase 2's inputs ----------
     proto, mcoef, boxes, keep, stride, _ = kernel_union.last
@@ -1062,12 +1471,28 @@ def main() -> int:
     emit({"phase": "timing", "kernel": "stem", "m": 600, "imgsz": IMGSZ, "dtype": "bfloat16",
           **errs, "kernel_ms": k_ms, "plain_ms": p_ms, **card})
 
+    # ---- phases 9 and 10: the orchestrator CLI ----------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        chain = phase_cli_chain(torch, P, Path(tmp) / "chain", counters, dev)
+        default = phase_cli_default(torch, P, Path(tmp) / "chain", Path(tmp) / "default",
+                                    chain, counters, dev)
+    by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
+               "cli_chain": chain["launches"], "cli_default": default["launches"]}
+
+    for name in KERNELS:
+        max_err[name] = max(max_err[name], chain["kernels"][name]["max_abs_err"])
+    # `launches`, `ms`, `plain_ms` and the bound are the rapido fold's (phase
+    # 6: two dispatches, timed a dispatch in phase 8); `cli_chain` holds the
+    # same for phase 9, whose stage 3 launches on 50 images a call
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": fold_launches[name], "max_abs_err": max_err[name],
+         "launches": fold_launches[name],
+         "launches_by_path": {k: v[name] for k, v in by_path.items()},
+         "max_abs_err": max_err[name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": works[name]["bound_ms"], "bound_by": works[name]["bound_by"],
          "library_ms": None, "work": dispatch,
+         "cli_chain": chain["kernels"][name],
          **({"ms_background": timing[(name, "background")][0]}
             if (name, "background") in timing else {}),
          **({"note": NOTES[name]} if name in NOTES else {})}

@@ -25,7 +25,9 @@ def _port_modules():
 def test_importing_every_port_module_leaves_jax_out():
     mods = _port_modules()
     for name in ("infer.consensus3", "pipeline.rapido", "pipeline.paths", "io.nifti",
-                 "train.checkpoint", "model.stem", "preproc.clahe"):
+                 "train.checkpoint", "model.stem", "preproc.clahe", "io.png",
+                 "pipeline.ejecutar_pipeline", "pipeline.stages.extraer_dataset",
+                 "pipeline.stages.reconstruir_volumen", "pipeline.stages.promediar_folds"):
         assert f"tpu_mslesseg_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"
@@ -41,12 +43,58 @@ def test_importing_every_port_module_leaves_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+CLIS = ("pipeline.ejecutar_pipeline", "pipeline.stages.setup", "pipeline.stages.extraer_dataset",
+        "pipeline.stages.generar_predicciones", "pipeline.stages.reconstruir_volumen",
+        "pipeline.stages.generar_consenso", "pipeline.stages.eval",
+        "pipeline.stages.promediar_folds")
+
+
+@pytest.fixture(scope="module")
+def cli_help():
+    """``python -m <cli> --help`` for every CLI of the port, in one process:
+    each one's help text and exit code, and the foreign modules loaded."""
+    code = (
+        "import contextlib, io, json, runpy, sys\n"
+        "out = {}\n"
+        f"for m in {CLIS!r}:\n"
+        "    sys.argv = [m, '--help']\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module('tpu_mslesseg_torch.' + m, run_name='__main__')\n"
+        "        rc = 'returned'\n"
+        "    except SystemExit as e:\n"
+        "        rc = e.code\n"
+        "    out[m] = [rc, buf.getvalue()]\n"
+        "out['foreign'] = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'flax', 'tpu_mslesseg', 'PIL', 'cv2', 'nibabel'))\n"
+        "print(json.dumps(out))\n"
+    )
+    run = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("cli", CLIS)
+def test_every_cli_prints_its_help_and_loads_nothing_foreign(cli_help, cli):
+    rc, text = cli_help[cli]
+    assert rc == 0 and "usage:" in text
+    if cli != "pipeline.stages.setup":
+        assert "--num_cortes" in text and "--mejora" in text
+    assert "--device" not in text  # the flag vocabulary is the reference's
+    assert cli_help["foreign"] == []
+
+
 def test_port_sources_never_name_jax():
     for path in Path(tpu_mslesseg_torch.__path__[0]).rglob("*.py"):
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), (path, line)
             assert not s.startswith(("import tpu_mslesseg ", "from tpu_mslesseg.")), (path, line)
+            assert not s.startswith(("import PIL", "from PIL", "import cv2", "import nibabel",
+                                     "from nibabel")), (path, line)
 
 
 def _run_smoke(cwd):

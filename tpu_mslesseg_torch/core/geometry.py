@@ -85,3 +85,12 @@ def to_png_space_batch(slices):
 def from_png_space_batch(pngs):
     """[N, H, W] PNG-space -> [N, W, H] volume-slice space, batched."""
     return pngs.flip(1).transpose(1, 2)
+
+
+def minmax_to_uint8(x):
+    """Min-max normalize to [0, 255] uint8 (reference `normalizar_a_uint8`,
+    ``utils/utils.py:396-406``): per-array for 2D, per-slice for [N,H,W].
+    Single implementation lives in preproc.enhance.normalize_to_uint8."""
+    from tpu_mslesseg_torch.preproc.enhance import normalize_to_uint8
+
+    return normalize_to_uint8(x)

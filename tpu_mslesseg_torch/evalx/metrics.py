@@ -21,8 +21,8 @@ def confusion_counts(y_true, y_pred):
     A volume with a leading batch dim gives one row per volume. Sums are
     taken in int64, so they are exact; the f32 result is exact up to 2**24
     voxels per volume (a 182x218x182 volume has 7.2M)."""
-    t = y_true > 0
-    p = y_pred > 0
+    t = torch.as_tensor(y_true) > 0
+    p = torch.as_tensor(y_pred) > 0
     dims = (-3, -2, -1)
     tp = (t & p).sum(dim=dims)
     fp = (~t & p).sum(dim=dims)
@@ -63,3 +63,26 @@ def metrics_from_counts(counts) -> dict:
         "Precision": _round3(prec),
         "Recall": _round3(rec),
     }
+
+
+def _counts64(y_true, y_pred):
+    return confusion_counts(y_true, y_pred).cpu().numpy().astype(np.float64)
+
+
+def DSC(y_true, y_pred) -> float:
+    tp, fp, fn, _ = _counts64(y_true, y_pred)
+    return _round3((2.0 * tp) / (2 * tp + fp + fn + 1e-8))
+
+
+def precision(y_true, y_pred) -> float:
+    tp, fp, _, _ = _counts64(y_true, y_pred)
+    return _round3(tp / (tp + fp + 1e-8))
+
+
+def recall(y_true, y_pred) -> float:
+    tp, _, fn, _ = _counts64(y_true, y_pred)
+    return _round3(tp / (tp + fn + 1e-8))
+
+
+def AUC(y_true, y_pred) -> float:
+    return compute_metrics(y_true, y_pred)["AUC"]

@@ -31,3 +31,8 @@ def consensus_vote(axial, coronal, sagital, umbral: int = 2):
         + (sagital > 0).to(torch.int32)
     )
     return (total >= umbral).to(torch.uint8)
+
+
+def reconstruccion_valida(pred_shape, gt_shape) -> bool:
+    """Shape-consistency validation (reference ``utils.py:183-194``)."""
+    return tuple(pred_shape) == tuple(gt_shape)

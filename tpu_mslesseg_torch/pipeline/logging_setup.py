@@ -8,8 +8,7 @@ Port of ``tpu_mslesseg/pipeline/logging_setup.py``. Parity notes
 * colored console formatter + ANSI-stripping file formatter (:58-84);
 * ``pipeline.log`` overwritten per run.
 
-The demo's log swap and the stage chain's fold-status helpers come with
-those entry points.
+The demo's log swap comes with the demo.
 """
 
 from __future__ import annotations
@@ -92,3 +91,28 @@ def get_logger(source_file) -> logging.Logger:
         configure_logging(log_file=None)
         _CONFIGURED = True
     return logging.getLogger(Path(str(source_file)).stem)
+
+
+def log_fold_status(logger, result, fold):
+    """Tri-state fold status line (reference ``log_estado_fold``,
+    ``utils/utils.py:503-515``)."""
+    if result is None:
+        logger.skip(f"⏩ Fold {fold} ya existente.")
+    elif result is True or isinstance(result, (dict, list)):
+        logger.info(f"🆗 Fold {fold} completado.")
+    elif result == "parcial":
+        logger.info(f"🔁 Fold {fold} parcialmente actualizado.")
+    else:
+        logger.warning(f"⚠️ Fold {fold}: estado desconocido.")
+
+
+def evaluate_results(results):
+    """None / True / 'parcial' aggregation (reference ``evaluar_resultados``,
+    ``utils/utils.py:435-447``)."""
+    if not results:
+        return None
+    if all(r is None for r in results):
+        return None
+    if all(r is True for r in results):
+        return True
+    return "parcial"

@@ -148,6 +148,21 @@ class Paciente:
         """GT mask slices [N, H, W] float32."""
         return self._extraer(self.gt_mask, indices)
 
+    # ----- reference-parity per-slice dict APIs -----
+
+    def cortes_con_lesion_img(self, num_cortes=None):
+        indices = self.indices_a_usar(num_cortes)
+        out = {}
+        for m in self.modalidad:
+            batch = self.cortes_imagen_batch(indices, m)
+            out[m] = [(i, batch[j]) for j, i in enumerate(indices)]
+        return out
+
+    def cortes_con_lesion_mask(self, num_cortes=None):
+        indices = self.indices_a_usar(num_cortes)
+        batch = self.cortes_mascara_batch(indices)
+        return [(i, batch[j]) for j, i in enumerate(indices)]
+
     def __repr__(self):
         return f"Paciente({self.id})"
 
@@ -191,3 +206,10 @@ def listar_pacientes(input_dir):
 def _ignorable(name: str) -> bool:
     low = name.lower()
     return name.startswith(".") or name.startswith("~") or low.endswith(".tmp")
+
+
+def obtener_id(paciente: str):
+    import re
+
+    m = re.search(r"P(\d+)", paciente)
+    return int(m.group(1)) if m else float("inf")
