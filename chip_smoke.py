@@ -102,6 +102,43 @@ pipeline's log lines):
    phase 9's volumes (bf16 results depend on the batch: the chain serves 50
    slices a call, ``rapido`` 200 a plane) and both phases' stage timings.
 
+11. stem_kernel (scales n, s, m, l, x): the fused stem's instance of every
+   published scale, (c0, c1) = (16, 32), (32, 64), (64, 128) for m and for
+   l, (96, 192), against
+   ``model.0``/``model.1`` of a model of that scale (seeded weights, BN
+   statistics perturbed) on 200 random images of 640: f32 within 2e-5, bf16
+   within ``stem.bf16_error_bound``; then each instance and its plain
+   version timed in both types, and the bf16 instance's bytes, operations,
+   bound and share of it (``bound`` lines).
+12. lote_scale_s: ``ConsensusPredictor.lote`` at scale s (bf16, 640, GC, two
+   of phase 2's patients) with ``TPU_MSLESSEG_PALLAS_STEM`` on: the
+   predictor is built with the stem's weights, the stem and union kernels
+   launch, the counts cover the volumes, and the consensus agrees with the
+   same call with the stem off (Dice at least 0.99).
+13. train: the train step at full width. YOLO11n-seg at its published
+   widths, imgsz 640, bf16 compute (the reference's ``amp``), batch 16 (``accumulate_steps``
+   4), ``max_fg`` 64, 64 instance slots with one to five valid, seeded
+   weights, 6 passes over 8 fixed synthetic batches (48 micro-steps) through
+   ``trainer.train_step``. Checks that every loss part is finite at every
+   step, that the optimizer fired at exactly the micro-steps
+   ``apply_cadence`` gives, that parameters, EMA and every BatchNorm running
+   statistic moved and are finite, and that the last pass's mean total loss
+   is below the first pass's. Prints seconds a micro-step (host clock around
+   work that ends in ``torch.cuda.synchronize()``, the first three apart)
+   and ``torch.cuda.max_memory_allocated()`` beside what earlier phases
+   still held when it began. The train step launches none
+   of the hand-written kernels (the reference's reaches no Pallas kernel
+   either); its launch counts are read like any other path's and are 0.
+14. train_f32: five f32 micro-steps (three applies) at imgsz 64, batch 2,
+   from the same weights on the same batches on the card and on the CPU.
+   Every loss part (box, seg, cls, dfl and the total, each above 0.1 on
+   these batches) within rtol 1e-3 at every step; every BatchNorm running
+   statistic within 2e-4; every parameter and its EMA by their update
+   (after minus initial): within 10% of the leaf's largest update on at
+   least 99% of the leaf's elements. The bias group warms from 0 here and
+   not from 0.1 (``phase_train_f32`` says why); three BatchNorm biases
+   whose gradient is rounding noise are left out.
+
 An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
 with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
 phase 2's slices: all must be equal (LT floors ``c*log1p(x)``, so a
@@ -113,7 +150,8 @@ the CLAHE kernels' background-heavy ms, the bound and what bounds it;
 ``launches`` counts phase 6's fold, which those times belong to,
 ``launches_by_path`` each driven path's, and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
-patient's three launches of 50 images; ``library_ms`` is null, as no single
+patient's three launches of 50 images; the stem's ``scales`` holds phase
+11's bf16 rows; ``library_ms`` is null, as no single
 PyTorch call computes any of the four functions), the card's ``nvidia-smi`` name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Any failure
@@ -158,6 +196,27 @@ STEM_TOL = 2e-5
 NEAR_THRESHOLD = 1e-3
 MIN_DICE = 0.99
 MIN_CHAIN_RAPIDO_DICE = 0.9  # the same patient through the chain and through rapido
+STEM_SCALES = ("n", "s", "m", "l", "x")  # every instance of the fused stem
+STEM_M = 200  # images a launch there: one plane of a served group
+TRAIN_BATCHES = 8  # the fixed set of synthetic batches
+TRAIN_PASSES = 6  # passes over it: 48 micro-steps
+TRAIN_FIRST = 3  # micro-steps reported apart (cuDNN's choices, allocator growth)
+# parameters phase 13 watches: a decayed kernel, a BatchNorm scale and bias,
+# the class head's bias
+TRAIN_PROBED = ("model.0.conv.weight", "model.2.cv1.bn.weight", "model.9.cv2.bn.bias",
+                "model.23.cv3.0.2.bias")
+# phase 14, card against CPU in f32 (the limits of the CPU tests that hold the
+# port's step against the reference's)
+TRAIN_F32_STEPS = 5  # micro-steps; the optimizer fires at 0, 1 and 3
+TRAIN_F32_LOSS_RTOL = 1e-3  # every loss part (each above 0.1) at every micro-step
+TRAIN_F32_BN_ATOL = 2e-4  # every BatchNorm running statistic
+TRAIN_F32_UPDATE_SHARE = 0.1  # an element's update: within this of its leaf's largest
+TRAIN_F32_OFF_SHARE = 0.01  # the share of a leaf's elements that may miss that
+# BatchNorm biases whose gradient is zero analytically (the train-mode
+# BatchNorm of the 1x1 convolution behind them removes a shift) and rounding
+# noise numerically: AdamW gives their updates a random sign on either device
+TRAIN_F32_NOISE = ("model.10.m.0.attn.pe.bn.bias", "model.10.m.0.attn.proj.bn.bias",
+                   "model.10.m.0.ffn.1.bn.bias")
 # kernel -> (its CUDA source, the Pallas kernel body it replaces)
 KERNEL_SOURCES = {
     "mask_union": ("tpu_mslesseg_torch/csrc/mask_union.cu",
@@ -398,11 +457,15 @@ def union_work(torch, mu, proto, mcoef, boxes, keep, stride, out) -> dict:
 
 
 def stem_work(x, out) -> dict:
-    """Bytes and operations of one fused-stem launch on x [M, S, S] bf16:
-    input and P2 once; b0 on the f32 pipe, b1 on the tensor cores."""
+    """Bytes and operations of one fused-stem launch on x [M, S, S] bf16 with
+    P2 `out` of M x S/4 x S/4 positions of c1 channels (c0 = c1 / 2 at every
+    published scale): input and P2 once; b0 on the f32 pipe, b1 on the
+    tensor cores."""
     m, h, w = x.shape
-    b0 = 2.0 * m * (h // 2) * (w // 2) * 16 * 9
-    b1 = 2.0 * m * (h // 4) * (w // 4) * 32 * 16 * 9
+    c1 = out.numel() // (m * (h // 4) * (w // 4))
+    c0 = c1 // 2
+    b0 = 2.0 * m * (h // 2) * (w // 2) * c0 * 9
+    b1 = 2.0 * m * (h // 4) * (w // 4) * c1 * c0 * 9
     return work_bound(nbytes(x, out), {"b0_f32_flops": (b0, F32_FLOPS),
                                        "b1_bf16_flops": (b1, BF16_TENSOR_FLOPS)})
 
@@ -883,6 +946,269 @@ def phase_cli_default(torch, P, chain_root: Path, root: Path, chain: dict, count
     return {"launches": launches}
 
 
+def phase_stem_scales(torch, P, gen, dev, card) -> dict:
+    """Phase 11: the fused stem's instances of scales n, s, m, l and x against
+    ``model.0``/``model.1`` (BN statistics perturbed) at 200 images of 640,
+    in f32 and in bf16, and the bf16 instance's time and bound. Returns
+    {scale: the bf16 row, with the f32 instance's and its plain version's ms}."""
+    x32 = torch.rand((STEM_M, IMGSZ, IMGSZ), generator=gen).to(dev)
+    rows = {}
+    for scale in STEM_SCALES:
+        base, _ = P.create_model(nc=1, scale=scale)
+        sd = perturbed_stem(torch, P.fold_gray_stem(P.init_variables(base, seed=7)), 8)
+        w = P.stem.stem_weights({k: v.to(dev) for k, v in sd.items()
+                                 if k.startswith(("model.0.", "model.1."))})
+        c0, c1 = P.stem.instance_of(w)
+        del base, sd
+        f32_ms = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            smodel, _ = P.create_model(nc=1, scale=scale, dtype=dtype)
+            x = x32.to(dtype)
+            before = P.stem.LAUNCHES
+            got = P.stem.stem_apply(smodel, w, x)
+            want = P.stem.stem_reference(smodel, w, x)
+            torch.cuda.synchronize()
+            if P.stem.LAUNCHES != before + 1:
+                raise AssertionError(f"stem scale {scale}: the wrapper did not launch its kernel")
+            if tuple(got.shape) != (STEM_M, c1, IMGSZ // 4, IMGSZ // 4) or got.dtype != dtype:
+                raise AssertionError(f"stem scale {scale}: output {tuple(got.shape)} {got.dtype}")
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"stem scale {scale}: output is not channels-last")
+            errs = stem_errors(torch, P.stem, smodel, w, x, got, want)
+            name = str(dtype).removeprefix("torch.")
+            emit({"phase": "stem_kernel", "scale": scale, "c0_c1": [c0, c1], "dtype": name,
+                  "m": STEM_M, "imgsz": IMGSZ, **errs,
+                  "bound": "atol=rtol=2e-5" if dtype == torch.float32
+                  else "1 bf16 ulp of the conv sum through BN and SiLU, + 1 of the output"})
+            work = stem_work(x, got) if dtype == torch.bfloat16 else None
+            del got, want
+            torch.cuda.empty_cache()
+            k_ms, p_ms = timed_pair(torch, lambda: P.stem.stem_apply(smodel, w, x),
+                                    lambda: P.stem.stem_reference(smodel, w, x), 5, 3)
+            emit({"phase": "timing", "kernel": "stem", "scale": scale, "m": STEM_M,
+                  "imgsz": IMGSZ, "dtype": name, "kernel_ms": k_ms, "plain_ms": p_ms, **card})
+            if work is None:
+                f32_ms = {"f32_ms": float(np.median(k_ms)), "f32_plain_ms": float(np.median(p_ms))}
+            else:
+                ms = float(np.median(k_ms))
+                emit_bound("stem", work, ms, 1, f"scale {scale}: one launch of {STEM_M} "
+                                                f"random images of {IMGSZ}")
+                rows[scale] = {"c0_c1": [c0, c1], "m": STEM_M, "ms": ms,
+                               "plain_ms": float(np.median(p_ms)), "bytes": work["bytes"],
+                               "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                               "share_of_bound": work["bound_ms"] / ms,
+                               "max_abs_err": errs["max_abs_err"], **f32_ms}
+            del x, smodel
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lote_scale_s(torch, P, slices, idx, gts, counters, dev) -> dict:
+    """Phase 12: one served ``ConsensusPredictor.lote`` at scale s (bf16,
+    640, GC, two patients) with the fused stem switched on: the predictor is
+    built with the stem's weights, the stem kernel launches, and the result
+    is held against the same call with the stem off."""
+    model, _ = P.create_model(nc=1, scale="s", dtype=torch.bfloat16)
+    variables = P.init_variables(model, seed=9)
+    for i in range(len(P.STRIDES)):  # no class prior: NMS keeps detections
+        variables[f"model.23.cv3.{i}.2.bias"].zero_()
+    n_pat = 2
+    sl = {p: v[:n_pat] for p, v in slices.items()}
+    ix = {p: v[:n_pat] for p, v in idx.items()}
+    kw = dict(mejora="GC", imgsz=IMGSZ, umbral=2, per_plane_counts=True, device=dev)
+    with switched(P.stem, "ENABLED", True):
+        cp_on = P.ConsensusPredictor(model, variables, VOL_SHAPE, **kw)
+    with switched(P.stem, "ENABLED", False):
+        cp_off = P.ConsensusPredictor(model, variables, VOL_SHAPE, **kw)
+    if cp_on._stem_w is None or cp_off._stem_w is not None:
+        raise AssertionError("scale s: the switch did not decide the predictor's stem")
+    zero_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts, cons, vols = cp_on.lote(sl, ix, gts[:n_pat])
+    torch.cuda.synchronize()
+    lote_s = time.perf_counter() - t0
+    launches = read_launches(counters)
+    if launches["stem"] < 1 or launches["mask_union"] < 1:
+        raise AssertionError(f"scale s: launches {launches}")
+    _, off_cons, off_vols = cp_off.lote(sl, ix, gts[:n_pat])
+    torch.cuda.synchronize()
+    n_vox = int(np.prod(VOL_SHAPE))
+    if tuple(cons.shape) != (n_pat,) + VOL_SHAPE or not bool(cons.any()):
+        raise AssertionError("scale s: the consensus is empty or of the wrong shape")
+    for key, c in counts.items():
+        if not (bool(torch.isfinite(c).all()) and bool((c.sum(1) == n_vox).all())):
+            raise AssertionError(f"scale s: counts of {key} do not cover the volume")
+    dices = {k: dice(cons if k == "consenso" else vols[k], off_cons if k == "consenso"
+                     else off_vols[k]) for k in PLANES + ("consenso",)}
+    emit({"phase": "lote_scale_s", "scale": "s", "dtype": "bfloat16", "patients": n_pat,
+          "launches": launches, "dice_stem_on_vs_off": dices, "min_consensus_dice": MIN_DICE,
+          "informational": {"lote_s": lote_s, **card_label(torch)}})
+    if dices["consenso"] < MIN_DICE:
+        raise AssertionError(f"scale s, stem on vs off: consensus Dice {dices} below {MIN_DICE}")
+    return launches
+
+
+def train_state_probe(torch, state) -> dict:
+    """Copies of what a train step may move: a few parameters, their EMA
+    and every BatchNorm running statistic's sum."""
+    sd = state.model.state_dict()
+    return {"params": {k: sd[k].detach().clone() for k in TRAIN_PROBED},
+            "ema": {k: state.ema[k].clone() for k in TRAIN_PROBED},
+            "bn": torch.stack([v.float().sum() for k, v in sd.items() if "running_" in k])}
+
+
+def phase_train(torch, P, dev, card) -> dict:
+    """Phase 13: the train step at full width. YOLO11n-seg, imgsz 640, bf16
+    compute (the reference's ``amp``), batch 16 (an optimizer step every four micro-batches
+    after the warmup's ramp), ``max_fg`` 64, 64 instance slots with one to
+    five valid, seeded weights, TRAIN_PASSES passes over TRAIN_BATCHES fixed
+    synthetic batches through ``train_step``."""
+    T = P.trainer
+    cfg = T.TrainConfig(batch_size=16, imgsz=IMGSZ, max_fg=64, seed=0)
+    spe = TRAIN_BATCHES
+    if T.accumulate_steps(cfg) != 4:
+        raise AssertionError("batch 16 against the nominal 64 must accumulate 4 micro-batches")
+    model, _ = P.create_model(nc=1, scale="n", dtype=torch.bfloat16)
+    if (model.cfg.scale, model.dtype) != ("n", torch.bfloat16):
+        raise AssertionError("the trained model is not YOLO11n-seg in bf16")
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    state = T.init_train_state(model, cfg, spe, device=dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                P.synthetic_batch(100 + i, cfg.batch_size, IMGSZ, 64).items()}
+               for i in range(TRAIN_BATCHES)]
+    before = train_state_probe(torch, state)
+    n_steps = TRAIN_PASSES * TRAIN_BATCHES
+    step_s, rows, applied = [], [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = T.train_step(state, batches[i % TRAIN_BATCHES])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        applied.append(bool(metrics.pop("applied")))
+        row = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in row.values()):
+            raise AssertionError(f"micro-step {i}: a loss part is not finite: {row}")
+        rows.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    mask, n_applies, _ = T.apply_cadence(cfg, spe)
+    if applied != mask[:n_steps].tolist() or state.applies != int(n_applies[n_steps - 1]):
+        raise AssertionError(f"the optimizer fired at {np.nonzero(applied)[0].tolist()}, the "
+                             f"cadence gives {np.nonzero(mask[:n_steps])[0].tolist()}")
+    after = train_state_probe(torch, state)
+    for what in ("params", "ema"):
+        for k in TRAIN_PROBED:
+            a, b = before[what][k], after[what][k]
+            if not bool(torch.isfinite(b).all()) or torch.equal(a, b):
+                raise AssertionError(f"{what} {k} did not move, or is not finite")
+    if not bool(torch.isfinite(after["bn"]).all()) or \
+            int((after["bn"] != before["bn"]).sum()) != after["bn"].numel():
+        raise AssertionError("a BatchNorm running statistic did not move, or is not finite")
+    for k, v in state.model.state_dict().items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{k} is not finite after training")
+    mean = lambda key, lo, hi: float(np.mean([r[key] for r in rows[lo:hi]]))
+    first = {k: mean(k, 0, TRAIN_BATCHES) for k in rows[0]}
+    last = {k: mean(k, n_steps - TRAIN_BATCHES, n_steps) for k in rows[0]}
+    fell = 1.0 - last["loss"] / first["loss"]
+
+    def median_s(with_apply: bool):
+        ts = [t for t, a in zip(step_s[TRAIN_FIRST:], applied[TRAIN_FIRST:]) if a == with_apply]
+        return float(np.median(ts)) if ts else None
+
+    emit({"phase": "train", "model": "YOLO11n-seg", "imgsz": IMGSZ, "dtype": "bfloat16",
+          "batch_size": cfg.batch_size, "accumulate": T.accumulate_steps(cfg),
+          "max_fg": cfg.max_fg, "slots": 64, "micro_steps": n_steps,
+          "fixed_batches": TRAIN_BATCHES, "optimizer_fired_at": np.nonzero(applied)[0].tolist(),
+          "applies": state.applies, "lr_bias_weights": list(state.lr),
+          "first_pass_mean": first, "last_pass_mean": last, "total_loss_fell_by": fell,
+          "kernel_launches": "none: the train step reaches no hand-written kernel",
+          "informational": {
+              "first_steps_s": step_s[:TRAIN_FIRST],
+              "s_per_micro_step_median": float(np.median(step_s[TRAIN_FIRST:])),
+              "s_per_micro_step_with_apply_median": median_s(True),
+              "s_per_micro_step_without_apply_median": median_s(False),
+              "images_per_s": cfg.batch_size / float(np.median(step_s[TRAIN_FIRST:])),
+              "max_memory_allocated_bytes": peak,
+              "memory_allocated_before_the_phase_bytes": held_before, **card}})
+    if not fell > 0:
+        raise AssertionError(f"the total loss did not fall: first pass {first['loss']}, "
+                             f"last pass {last['loss']}")
+    return {"fell": fell}
+
+
+def phase_train_f32(torch, P, dev) -> None:
+    """Phase 14: TRAIN_F32_STEPS f32 micro-steps (three applies) at imgsz 64,
+    batch 2, from the same weights on the same batches, on the card and on
+    the CPU through the port. The batches' ellipses span a third of the
+    image and more, so all four loss parts are above 0.1 and each is held at
+    TRAIN_F32_LOSS_RTOL with no absolute allowance. The bias group warms
+    from 0 here and not from 0.1: AdamW's first steps move an element by
+    the learning rate times its gradient's sign, a rounding-noise gradient
+    then moves a bias by 0.1 either way, and the two runs part ways after
+    the first apply whatever the device. With every update a few 1e-5 the
+    runs stay together, and every parameter and its EMA are held by their
+    *update* (after minus initial) against the leaf's largest update."""
+    T = P.trainer
+    cfg = T.TrainConfig(batch_size=2, imgsz=64, max_fg=8, seed=1, warmup_bias_lr=0.0)
+    batches = [P.synthetic_batch(200 + i, 2, 64, 4, max_valid=2, size=(0.3, 0.7))
+               for i in range(TRAIN_F32_STEPS)]
+    runs = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        model, _ = P.create_model(nc=1, scale="n", dtype=torch.float32)
+        state = T.init_train_state(model, cfg, 4, device=where)
+        init = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        rows = [{k: float(v) for k, v in T.train_step(state, b).items()} for b in batches]
+        runs[name] = {
+            "rows": rows, "init": init, "applies": state.applies,
+            "params": {k: v.detach().cpu() for k, v in state.model.named_parameters()},
+            "ema": {k: v.cpu() for k, v in state.ema.items()},
+            "bn": {k: v.cpu() for k, v in state.model.state_dict().items() if "running_" in k}}
+    card, cpu = runs["card"], runs["cpu"]
+    fired = [bool(r["applied"]) for r in card["rows"]]
+    if fired != [bool(r["applied"]) for r in cpu["rows"]] or card["applies"] != 3 \
+            or cpu["applies"] != 3:
+        raise AssertionError(f"applies: card {card['applies']} at {fired}, CPU {cpu['applies']}")
+    parts = ("loss", "box", "seg", "cls", "dfl")
+    worst = {"loss_rel": 0.0, "bn_abs": 0.0, "params_off_share": 0.0, "ema_off_share": 0.0}
+    for i, (rc, rh) in enumerate(zip(card["rows"], cpu["rows"])):
+        for k in parts:
+            if not rh[k] > 0.1:
+                raise AssertionError(f"micro-step {i}: the {k} part is {rh[k]}, too small to hold")
+            worst["loss_rel"] = max(worst["loss_rel"], abs(rc[k] - rh[k]) / abs(rh[k]))
+    for k, v in cpu["bn"].items():
+        worst["bn_abs"] = max(worst["bn_abs"], float((card["bn"][k] - v).abs().max()))
+    held, worst_leaf = 0, {}
+    for what in ("params", "ema"):
+        for k, init in cpu["init"].items():
+            if k in TRAIN_F32_NOISE:
+                continue
+            d_cpu, d_card = cpu[what][k] - init, card[what][k] - card["init"][k]
+            top = float(d_cpu.abs().max())
+            if top < 1e-6:  # a level without foreground: decay alone, below float32's step
+                continue
+            held += 1
+            off = float(((d_card - d_cpu).abs() > TRAIN_F32_UPDATE_SHARE * top).float().mean())
+            if off >= worst[f"{what}_off_share"]:
+                worst[f"{what}_off_share"], worst_leaf[what] = off, k
+    if not all(torch.equal(card["init"][k], v) for k, v in cpu["init"].items()):
+        raise AssertionError("the two runs did not start from the same weights")
+    emit({"phase": "train_f32", "imgsz": 64, "batch_size": 2, "micro_steps": TRAIN_F32_STEPS,
+          "applies": card["applies"], "warmup_bias_lr": cfg.warmup_bias_lr,
+          "card": card["rows"], "cpu": cpu["rows"], "leaves_held": held,
+          "leaves_left_out": TRAIN_F32_NOISE, "worst_leaf": worst_leaf, **worst,
+          "rtol_loss": TRAIN_F32_LOSS_RTOL, "atol_bn": TRAIN_F32_BN_ATOL,
+          "update_within": TRAIN_F32_UPDATE_SHARE, "elements_off_at_most": TRAIN_F32_OFF_SHARE})
+    if held < 400:
+        raise AssertionError(f"only {held} parameter and EMA leaves moved")
+    if worst["loss_rel"] > TRAIN_F32_LOSS_RTOL or worst["bn_abs"] > TRAIN_F32_BN_ATOL \
+            or worst["params_off_share"] > TRAIN_F32_OFF_SHARE \
+            or worst["ema_off_share"] > TRAIN_F32_OFF_SHARE:
+        raise AssertionError(f"f32 train steps on the card and on the CPU disagree: {worst}")
+
+
 def main() -> int:
     import torch
 
@@ -917,6 +1243,8 @@ def main() -> int:
     from tpu_mslesseg_torch.pipeline.paths import ConfigPred, ConfigTrain
     from tpu_mslesseg_torch.pipeline.stages import generar_predicciones as gen_stage
     from tpu_mslesseg_torch.preproc import clahe, enhance
+    from tpu_mslesseg_torch.tools.train_batches import synthetic_batch as train_batch
+    from tpu_mslesseg_torch.train import trainer
     from tpu_mslesseg_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
     # the port's modules the CLI phases use
@@ -929,6 +1257,8 @@ def main() -> int:
         geometry=geometry, enhance=enhance, SlicePredictor=SlicePredictor,
         profiling=profiling, orch=orch, gen=gen_stage, logging_setup=logging_setup,
         mu=mu, stem=stem, clahe=clahe, detect_and_union=detect_and_union,
+        ConsensusPredictor=ConsensusPredictor, fold_gray_stem=fold_gray_stem,
+        trainer=trainer, synthetic_batch=train_batch,
     )
 
     dev = torch.device(DEVICE)
@@ -1476,8 +1806,25 @@ def main() -> int:
         chain = phase_cli_chain(torch, P, Path(tmp) / "chain", counters, dev)
         default = phase_cli_default(torch, P, Path(tmp) / "chain", Path(tmp) / "default",
                                     chain, counters, dev)
+    torch.cuda.empty_cache()
+
+    # ---- phases 11 and 12: the stem at every scale, served at scale s ------
+    stem_scales = phase_stem_scales(torch, P, gen, dev, card)
+    for row in stem_scales.values():
+        max_err["stem"] = max(max_err["stem"], row["max_abs_err"])
+    scale_s_launches = phase_lote_scale_s(torch, P, slices, idx, gts, counters, dev)
+    torch.cuda.empty_cache()
+
+    # ---- phases 13 and 14: the train step ----------------------------------
+    zero_launches(counters)
+    phase_train(torch, P, dev, card)
+    train_launches = read_launches(counters)  # the train step holds no kernel: all 0
+    torch.cuda.empty_cache()
+    phase_train_f32(torch, P, dev)
+
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
-               "cli_chain": chain["launches"], "cli_default": default["launches"]}
+               "cli_chain": chain["launches"], "cli_default": default["launches"],
+               "lote_scale_s": scale_s_launches, "train": train_launches}
 
     for name in KERNELS:
         max_err[name] = max(max_err[name], chain["kernels"][name]["max_abs_err"])
@@ -1493,6 +1840,7 @@ def main() -> int:
          "bound_ms": works[name]["bound_ms"], "bound_by": works[name]["bound_by"],
          "library_ms": None, "work": dispatch,
          "cli_chain": chain["kernels"][name],
+         **({"scales": stem_scales} if name == "stem" else {}),
          **({"ms_background": timing[(name, "background")][0]}
             if (name, "background") in timing else {}),
          **({"note": NOTES[name]} if name in NOTES else {})}

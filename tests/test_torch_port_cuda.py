@@ -294,8 +294,8 @@ def test_clahe_blend_wrapper_checks_its_inputs(cuda):
 # --------------------------------------------------------------------------
 
 
-def _stem_case(dtype, dev, seed=0):
-    model, _ = create_model(nc=1, scale="n", dtype=dtype)
+def _stem_case(dtype, dev, seed=0, scale="n"):
+    model, _ = create_model(nc=1, scale=scale, dtype=dtype)
     sd = fold_gray_stem(init_variables(model, seed))
     gen = torch.Generator().manual_seed(seed + 1)
     for b in ("model.0", "model.1"):  # BN statistics away from identity
@@ -303,22 +303,23 @@ def _stem_case(dtype, dev, seed=0):
         sd[f"{b}.bn.running_mean"] = torch.randn(n, generator=gen) * 0.2 + 0.3
         sd[f"{b}.bn.running_var"] = torch.rand(n, generator=gen) * 1.5 + 0.5
         sd[f"{b}.bn.bias"] = torch.randn(n, generator=gen) * 0.3 + 0.1
-    return model, stem.stem_weights({k: v.to(dev) for k, v in sd.items()})
-
-
+    return model, stem.stem_weights({k: v.to(dev) for k, v in sd.items()
+                                     if k.startswith(("model.0.", "model.1."))})
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("size", [64, 256, 96])
-def test_stem_kernel_matches_plain(cuda, dtype, size):
-    model, w = _stem_case(dtype, cuda)
+@pytest.mark.parametrize("size", [64, 256, 96, 200])  # 200: 50 x 50 positions, ragged tiles
+@pytest.mark.parametrize("scale,c1", [("n", 32), ("s", 64), ("m", 128), ("l", 128), ("x", 192)])
+def test_stem_kernel_matches_plain(cuda, dtype, size, scale, c1):
+    model, w = _stem_case(dtype, cuda, scale=scale)
+    assert stem.instance_of(w)[1] == c1
     x = torch.rand((5, size, size), generator=torch.Generator().manual_seed(size)).to(cuda, dtype)
     before = stem.LAUNCHES
     got = stem.stem_apply(model, w, x)
     torch.cuda.synchronize()
     assert stem.LAUNCHES == before + 1
     want = stem.stem_reference(model, w, x)
-    assert got.shape == want.shape == (5, 32, size // 4, size // 4)
+    assert got.shape == want.shape == (5, c1, size // 4, size // 4)
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
@@ -338,3 +339,77 @@ def test_stem_wrapper_checks_its_inputs(cuda):
         stem.stem_apply(model, w, x[:, :62, :62])
     with pytest.raises(ValueError):
         stem.stem_apply(model, {k: v.cpu() for k, v in w.items()}, x)
+
+
+def test_stem_without_an_instance_raises_on_the_card(cuda):
+    model, w = _stem_case(torch.float32, cuda)
+    narrow = dict(w)
+    for leaf in ("conv.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var"):
+        narrow[f"model.0.{leaf}"] = w[f"model.0.{leaf}"][:8].contiguous()
+    narrow["model.1.conv.weight"] = w["model.1.conv.weight"][:, :8].contiguous()
+    before = stem.LAUNCHES
+    with pytest.raises(RuntimeError, match="no kernel instance"):
+        stem.stem_apply(model, narrow, torch.zeros((1, 64, 64), device=cuda))
+    assert stem.LAUNCHES == before
+
+
+# --------------------------------------------------------------------------
+# the train step
+# --------------------------------------------------------------------------
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Five f32 micro-steps (three applies) at imgsz 64 from the same weights
+    on the same batches, on the card and on the CPU. The ellipses span a
+    third of the image and more, so every loss part is above 0.1 and is held
+    at rtol 1e-3; the bias group warms from 0 (from 0.1, AdamW turns the
+    sign of a rounding-noise gradient into a step of 0.1 and the runs part
+    ways on any two devices), and every parameter's update (after minus
+    initial) is within 10% of its leaf's largest update on at least 99% of
+    the leaf's elements, three BatchNorm biases with a noise gradient left
+    out."""
+    from tpu_mslesseg_torch.tools.train_batches import synthetic_batch
+    from tpu_mslesseg_torch.train import trainer
+
+    noise = ("model.10.m.0.attn.pe.bn.bias", "model.10.m.0.attn.proj.bn.bias",
+             "model.10.m.0.ffn.1.bn.bias")
+    cfg = trainer.TrainConfig(batch_size=2, imgsz=64, max_fg=8, seed=1, warmup_bias_lr=0.0)
+    batches = [synthetic_batch(200 + i, 2, 64, 4, max_valid=2, size=(0.3, 0.7))
+               for i in range(5)]
+    rows, init, last = {}, {}, {}
+    for where in (cuda, torch.device("cpu")):
+        model, _ = create_model(nc=1, scale="n")
+        state = trainer.init_train_state(model, cfg, 4, device=where)
+        assert state.device.type == where.type
+        init[where.type] = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+        rows[where.type] = [trainer.train_step(state, b) for b in batches]
+        assert all(v.device.type == where.type for v in rows[where.type][0].values()
+                   if isinstance(v, torch.Tensor))
+        assert state.applies == 3 and state.step == 5
+        last[where.type] = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        for k in ("loss", "box", "seg", "cls", "dfl"):
+            assert float(want[k]) > 0.1
+            assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-3)
+    held = 0
+    for k, first in init["cpu"].items():
+        assert torch.equal(first, init["cuda"][k])
+        if k in noise:
+            continue
+        d_cpu, d_card = last["cpu"][k] - first, last["cuda"][k] - first
+        top = float(d_cpu.abs().max())
+        if top < 1e-6:  # a level without foreground: decay alone
+            continue
+        held += 1
+        assert bool(torch.isfinite(d_card).all())
+        off = float(((d_card - d_cpu).abs() > 0.1 * top).float().mean())
+        assert off <= 0.01, (k, off, top)
+    assert held > 200
+
+
+def test_train_state_defaults_to_the_card(cuda):
+    from tpu_mslesseg_torch.train import trainer
+
+    model, _ = create_model(nc=1, scale="n")
+    state = trainer.init_train_state(model, trainer.TrainConfig(imgsz=64, batch_size=2), 4)
+    assert state.device.type == "cuda"

@@ -161,7 +161,15 @@ def test_stem_work_counts_both_convolutions():
 def test_kernel_ab_ablations_still_match_the_stem_source():
     from tpu_mslesseg_torch.tools import kernel_ab
 
-    src = (kernel_ab.CSRC / "stem.cu").read_text()
+    # the ablations rewrite scale n's kernels: the source between the two markers
+    text = (kernel_ab.CSRC / "stem.cu").read_text()
+    head, src, rest = kernel_ab.ablatable("stem", text)
+    assert head + src + rest == text
+    assert head.endswith(kernel_ab.STEM_N_BEGIN) and rest.startswith(kernel_ab.STEM_N_END)
+    assert "stem_mma_kernel" in src and "stem_fma_kernel" in src
+    assert "stem_mma_wide_kernel" in rest and "_wide_kernel" not in src
+    # the tool tells the two argument lists of stem_forward by this symbol
+    assert 'extern "C" int stem_abi_version() { return 2; }' in rest
     for name, subs in kernel_ab.ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)

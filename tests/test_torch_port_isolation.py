@@ -43,6 +43,34 @@ def test_importing_every_port_module_leaves_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+TRAIN_MODULES = ("train.assigner", "train.losses", "train.trainer", "train.checkpoint",
+                 "tools.train_batches", "model.blocks", "model.bridge", "model.yolo11")
+
+
+def test_the_training_modules_load_no_other_framework():
+    """The train step's modules import torch and numpy: no jax, flax or
+    optax, and nothing of the JAX package."""
+    mods = _port_modules()
+    for name in TRAIN_MODULES:
+        assert f"tpu_mslesseg_torch.{name}" in mods, name
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {TRAIN_MODULES!r}: importlib.import_module('tpu_mslesseg_torch.' + m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tpu_mslesseg'))))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for name in TRAIN_MODULES:
+        path = Path(tpu_mslesseg_torch.__path__[0]) / (name.replace(".", "/") + ".py")
+        for line in path.read_text().splitlines():
+            assert not line.strip().startswith(
+                ("import flax", "from flax", "import optax", "from optax")), (path, line)
+
+
 CLIS = ("pipeline.ejecutar_pipeline", "pipeline.stages.setup", "pipeline.stages.extraer_dataset",
         "pipeline.stages.generar_predicciones", "pipeline.stages.reconstruir_volumen",
         "pipeline.stages.generar_consenso", "pipeline.stages.eval",

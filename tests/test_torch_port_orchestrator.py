@@ -233,7 +233,7 @@ def test_an_untrained_fold_without_entrenar_warns_and_goes_on(untrained, caplog)
 
 def test_entrenar_on_an_untrained_fold_stops_and_names_the_roadmap(untrained, monkeypatch):
     with Env(cwd=untrained):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4-A6"):
             torch_orch.ejecutar_pipeline(modelo(TModelo, "axial", CASE), epochs=EPOCHS,
                                          entrenar=True, device="cpu")
         # through the CLI: logged, exit code 1 (the run here is on the CPU)
@@ -248,7 +248,7 @@ def test_entrenar_on_an_untrained_fold_stops_and_names_the_roadmap(untrained, mo
                     torch_orch.main(argv + extra)
                 assert exc.value.code == 1
                 log = (untrained / "pipeline.log").read_text()
-                assert "Error en el pipeline" in log and "ROADMAP A11" in log
+                assert "Error en el pipeline" in log and "ROADMAP A4-A6" in log
         finally:
             tlog.configure_logging(log_file=None)
     assert not (untrained / "pred_vols").exists()

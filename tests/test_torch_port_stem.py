@@ -32,10 +32,9 @@ from tpu_mslesseg_torch.model.yolo11 import fold_gray_stem as t_fold
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-@pytest.fixture(scope="module")
-def variables():
+def _variables(scale):
     """JAX variables (numpy leaves) with the stem's BN stats perturbed."""
-    model, _ = j_create(nc=1, scale="n")
+    model, _ = j_create(nc=1, scale=scale)
     init = jax.jit(lambda k: model.init(k, jnp.zeros((1, 64, 64, 3)), train=False))
     v = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(0)))
     v = {c: jax.tree_util.tree_map(lambda x: x, dict(v[c])) for c in v}
@@ -49,9 +48,14 @@ def variables():
     return v
 
 
-def _served(variables, tdtype):
+@pytest.fixture(scope="module")
+def variables():
+    return _variables("n")
+
+
+def _served(variables, tdtype, scale="n"):
     """The port's model and its served state_dict (stem folded)."""
-    tmodel, _ = t_create(nc=1, scale="n", dtype=tdtype)
+    tmodel, _ = t_create(nc=1, scale=scale, dtype=tdtype)
     return tmodel, t_fold(state_dict_from_reference(variables, tmodel))
 
 
@@ -83,6 +87,78 @@ def test_stem_matches_jax_reference_and_pallas_kernel(variables, dtype, imgsz):
             np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
         else:
             assert np.all(np.abs(got - want) <= _bf16_ulp_bound(want))
+
+
+@pytest.mark.parametrize("scale,c0,c1", [("s", 32, 64), ("x", 96, 192)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wider_stems_match_the_pallas_kernel(scale, c0, c1, dtype):
+    """The plain version that the wider kernel instances are held against on
+    the card, against JAX's kernel (interpreted) and its plain stem, at the
+    channel counts of scales s and x."""
+    jdt, tdt = DTYPES[dtype]
+    v = _variables(scale)
+    jmodel, _ = j_create(nc=1, scale=scale, dtype=jdt)
+    folded = j_fold(v)
+    x = np.random.default_rng(11).uniform(0, 1, (2, 64, 64)).astype(np.float32)
+    ref = jsp.stem_reference(jmodel, folded, jnp.asarray(x))
+    kern = jsp.stem_apply(
+        jsp.build_stem_weights(folded, dtype=jdt),
+        jsp.stem_s2d(jnp.asarray(x).astype(jdt)), interpret=True,
+    )
+    tmodel, sd = _served(v, tdt, scale)
+    w = tst.stem_weights(sd)
+    assert tst.instance_of(w) == (c0, c1)
+    got = tst.stem_apply(tmodel, w, torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt and tuple(got.shape) == (2, c1, 16, 16)
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    for want in (ref, kern):
+        want = np.asarray(want.astype(jnp.float32))
+        assert want.shape == got.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+        else:
+            assert np.all(np.abs(got - want) <= _bf16_ulp_bound(want))
+
+
+def test_every_published_scale_has_a_kernel_instance():
+    for scale in "nsmlx":
+        tmodel, _ = t_create(nc=1, scale=scale)
+        shapes = {k: v for k, v in tmodel.state_dict().items()
+                  if k in ("model.0.conv.weight", "model.1.conv.weight")}
+        shapes["model.0.conv.weight"] = shapes["model.0.conv.weight"][:, :1]  # folded
+        assert scale in tst.INSTANCES[tst.instance_of(shapes)]
+
+
+def test_a_stem_without_a_kernel_instance_fails_the_predictor_at_construction(
+        variables, monkeypatch):
+    """With the switch on, a served stem whose shapes no kernel instance
+    takes raises when the predictor is built, before any patient, and the
+    stages' queue calls it a kernel failure (raised, not skipped)."""
+    from tpu_mslesseg_torch.core.device import SinInstanciaDeKernel, es_fallo_de_dispositivo
+
+    tmodel, sd = _served(variables, torch.float32)
+    narrow = dict(sd)  # a stem of 8 and 32 channels: no scale has it
+    for leaf in ("conv.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var"):
+        narrow[f"model.0.{leaf}"] = sd[f"model.0.{leaf}"][:8]
+    narrow["model.1.conv.weight"] = sd["model.1.conv.weight"][:, :8]
+    monkeypatch.setattr(tst, "ENABLED", True)
+    monkeypatch.setenv("TPU_MSLESSEG_SCALE", "n")
+    with pytest.raises(RuntimeError, match="no kernel instance.*TPU_MSLESSEG_SCALE=n") as err:
+        tst.maybe_build(narrow, "cuda", 640)
+    # told by its class, whatever the message says
+    assert isinstance(err.value, SinInstanciaDeKernel)
+    assert es_fallo_de_dispositivo(err.value)
+    assert es_fallo_de_dispositivo(SinInstanciaDeKernel("reworded"))
+    assert not es_fallo_de_dispositivo(RuntimeError("no kernel instance"))
+    with pytest.raises(RuntimeError, match="no kernel instance"):
+        tst.maybe_build({"axial": sd, "coronal": narrow}, "cuda", 640)
+    assert tst.maybe_build(narrow, "cpu", 640) is None  # the plain chain serves any shape
+    # the predictors build their stem through this gate: as if on a card
+    real = tst.maybe_build
+    monkeypatch.setattr(tst, "maybe_build", lambda v, device, imgsz: real(v, "cuda", imgsz))
+    with pytest.raises(RuntimeError, match="no kernel instance"):
+        tpred.SlicePredictor(tmodel, narrow, (28, 24), imgsz=64, device="cpu")
+    assert tpred.SlicePredictor(tmodel, sd, (28, 24), imgsz=64, device="cpu")._stem_w is not None
 
 
 def test_from_p2_equals_the_full_forward(variables):

@@ -16,6 +16,11 @@ from __future__ import annotations
 import torch
 
 
+class SinInstanciaDeKernel(RuntimeError):
+    """A switched-on kernel holds no instance for the served model's shapes:
+    a failure of the kernel (every patient would meet it), not of a patient."""
+
+
 def exigir(device, kernels=()) -> torch.device:
     """`device` as a ``torch.device``, after one allocation on it and, on a
     CUDA device, with ``csrc/<name>.cu`` built and loaded for each name in
@@ -48,9 +53,10 @@ def kernels_de(mejora, stem: bool = False, union: bool = False) -> tuple:
 
 def es_fallo_de_dispositivo(e: BaseException) -> bool:
     """True for a failure of the card or of a kernel (a build that failed, a
-    launch that failed, a CUDA error, device memory exhausted); False for
-    anything else, such as a patient's unreadable file."""
-    if isinstance(e, torch.OutOfMemoryError):
+    launch that failed, a CUDA error, device memory exhausted, a served
+    model the switched-on fused stem holds no kernel instance for); False
+    for anything else, such as a patient's unreadable file."""
+    if isinstance(e, (torch.OutOfMemoryError, SinInstanciaDeKernel)):
         return True
     return isinstance(e, RuntimeError) and any(
         mark in str(e) for mark in ("CUDA", "nvcc", "kernel launch failed")

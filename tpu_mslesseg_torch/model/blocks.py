@@ -11,6 +11,15 @@ kept in float32 and cast to the compute dtype at each convolution (flax's
 block output is cast back to the compute dtype. The attention softmax runs
 in float32 and is cast back. Residual adds and concats therefore run in
 the compute dtype.
+
+In train mode (``module.train()``) a block normalises with the batch's own
+statistics and updates the running ones, both as the reference's flax
+``BatchNorm`` does and not as ``F.batch_norm(training=True)`` does: the
+variance is ``E[x^2] - E[x]^2`` in float32 (clamped at 0), and the running
+variance takes that *biased* value (torch's takes the unbiased one). A
+block is built in eval mode, and so is the model (``nn.Module`` builds in
+train mode): serving code never has to ask for it, and only the trainer
+switches to train mode.
 """
 
 from __future__ import annotations
@@ -30,17 +39,34 @@ class Conv(nn.Module):
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = act
+        self.eval()  # a block serves unless a trainer calls ``.train()``
 
     def forward(self, x):
         y = self.conv._conv_forward(x, self.conv.weight.to(x.dtype), None)
         bn = self.bn
-        y = F.batch_norm(
-            y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-            False, 0.0, bn.eps,
-        )
+        if self.training:
+            y = self._batch_norm_train(y.float())
+        else:
+            y = F.batch_norm(
+                y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                False, 0.0, bn.eps,
+            )
         if self.act:
             y = F.silu(y)
         return y.to(x.dtype)
+
+    def _batch_norm_train(self, y):
+        """Batch norm of float32 `y` with its batch statistics; moves the
+        running statistics by ``bn.momentum`` towards them (in place)."""
+        bn = self.bn
+        mean = y.mean(dim=(0, 2, 3))
+        var = ((y * y).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            keep = 1.0 - bn.momentum
+            bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
+            bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (y - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
 
 
 class DWConv(Conv):

@@ -1,10 +1,16 @@
-"""Reference (flax) variables -> this package's ``state_dict``.
+"""Reference (flax) variables <-> this package's ``state_dict``.
 
 The reference keeps its weights as ``{"params", "batch_stats"}`` trees of
 arrays. This module turns such a tree, given as numpy arrays (or anything
-``np.asarray`` takes), into a state_dict for `YOLO11Seg`. It is the inverse
-of the reference's ultralytics importer (``tpu_mslesseg/model/import_pt.py``
-``torch_key`` and ``_transform``), whose name map it copies:
+``np.asarray`` takes), into a state_dict for `YOLO11Seg`
+(`state_dict_from_reference`), a tree shaped like the reference's
+parameters, such as its gradients, into tensors under state_dict keys
+(`tensors_from_reference`), and a state_dict back into reference-shaped
+numpy trees (`reference_from_state_dict`), so that parameters, EMA and
+BatchNorm statistics can be compared leaf by leaf after training steps. It
+is the inverse of the reference's ultralytics importer
+(``tpu_mslesseg/model/import_pt.py`` ``torch_key`` and ``_transform``),
+whose name map it copies:
 
 * flax kernel ``(kh, kw, I/g, O)`` -> Conv2d weight ``(O, I/g, kh, kw)``;
 * flax ConvTranspose kernel ``(kh, kw, I, O)`` -> transpose to
@@ -86,6 +92,15 @@ def _to_torch_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w.transpose(3, 2, 0, 1))
 
 
+def _to_reference_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
+    """The inverse of `_to_torch_layout`."""
+    if path[-1] != "kernel":
+        return w
+    if "upsample" in path:
+        return np.ascontiguousarray(w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+
 def _leaves(tree, path=()):
     for name, node in tree.items():
         if isinstance(node, Mapping):
@@ -94,16 +109,48 @@ def _leaves(tree, path=()):
             yield path + (name,), node
 
 
+def tensors_from_reference(tree, collection: str = "params") -> dict[str, torch.Tensor]:
+    """A tree shaped like the reference's `collection` (its parameters, their
+    gradients, an EMA) -> float32 CPU tensors under state_dict keys, in this
+    package's layouts."""
+    out = {}
+    for path, leaf in _leaves(tree):
+        w = _to_torch_layout(path, np.asarray(leaf, dtype=np.float32))
+        out[torch_key(collection, path)] = torch.from_numpy(w.copy())
+    return out
+
+
+def reference_from_state_dict(sd, template) -> dict:
+    """`sd` (a state_dict, or any subset of one such as an EMA of the
+    parameters) -> numpy trees shaped like `template`, the reference's
+    ``{"params": ..., "batch_stats": ...}`` (leaf values unused; a collection
+    none of whose keys `sd` holds is left out). Raises ``KeyError`` when `sd`
+    holds some but not all leaves of a collection."""
+    def build(col, tree, path=()):
+        return {
+            name: build(col, node, path + (name,)) if isinstance(node, Mapping)
+            else _to_reference_layout(
+                path + (name,),
+                sd[torch_key(col, path + (name,))].detach().to("cpu", torch.float32).numpy())
+            for name, node in tree.items()
+        }
+
+    out = {}
+    for col in ("params", "batch_stats"):
+        if col in template and any(
+            torch_key(col, path) in sd for path, _ in _leaves(template[col])
+        ):
+            out[col] = build(col, template[col])
+    return out
+
+
 def state_dict_from_reference(variables, model) -> dict[str, torch.Tensor]:
     """The reference's ``{"params", "batch_stats"}`` -> `model`'s state_dict
     (float32 CPU tensors). Raises unless the keys and shapes match the
     model's exactly."""
     sd = {}
     for col in ("params", "batch_stats"):
-        for path, leaf in _leaves(variables[col]):
-            key = torch_key(col, path)
-            w = _to_torch_layout(path, np.asarray(leaf, dtype=np.float32))
-            sd[key] = torch.from_numpy(w.copy())
+        sd.update(tensors_from_reference(variables[col], col))
     expected = model.state_dict()
     for key in expected:
         if key.endswith("num_batches_tracked"):

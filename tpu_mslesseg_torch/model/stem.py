@@ -11,9 +11,12 @@ activations of the network (at 640: 320x320x16 and 160x160x32 per image).
 ``model.1`` blocks. ``stem_apply`` runs ``csrc/stem.cu`` on a CUDA tensor,
 which replaces the reference's Pallas ``_stem_kernel``: one pass that keeps
 the b0 output on chip and writes only the P2 map, NHWC, which is the memory
-of the channels-last ``[M, 32, S/4, S/4]`` tensor ``model.2`` takes. In
+of the channels-last ``[M, c1, S/4, S/4]`` tensor ``model.2`` takes. In
 bf16 the kernel computes ``model.1``'s convolution on the tensor cores; in
-f32 on the FMA pipe (the source note says why).
+f32 on the FMA pipe (the source note says why). The source holds one kernel
+instance for each published scale's channel counts (``INSTANCES``), picked
+from the two weight shapes, as the reference reads ``c0`` and ``c1`` from
+its weights.
 
 As in the reference, the fused stem is opt-in: ``TPU_MSLESSEG_PALLAS_STEM=1``
 turns it on (the same variable, default "0"), and ``maybe_build`` is the one
@@ -28,6 +31,7 @@ import os
 import torch
 
 from tpu_mslesseg_torch import _build
+from tpu_mslesseg_torch.core.device import SinInstanciaDeKernel
 
 ENABLED = os.environ.get("TPU_MSLESSEG_PALLAS_STEM", "0") == "1"
 
@@ -35,6 +39,8 @@ ENABLED = os.environ.get("TPU_MSLESSEG_PALLAS_STEM", "0") == "1"
 LAUNCHES = 0
 
 BN_EPS = 1e-3
+# (c0, c1) of ``model.0`` and ``model.1`` -> the scales the kernel instance serves
+INSTANCES = {(16, 32): "n", (32, 64): "s", (64, 128): "m, l", (96, 192): "x"}
 _BLOCKS = ("model.0", "model.1")
 _LEAVES = ("conv.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var")
 
@@ -45,16 +51,42 @@ def stem_weights(variables) -> dict:
     return {f"{b}.{leaf}": variables[f"{b}.{leaf}"] for b in _BLOCKS for leaf in _LEAVES}
 
 
+def instance_of(weights) -> tuple[int, int]:
+    """(c0, c1) of the kernel instance that serves the stem `weights` (a
+    folded stem: ``[c0,1,3,3]`` and ``[c1,c0,3,3]``); raises
+    ``SinInstanciaDeKernel`` (a ``RuntimeError``) when the source holds none
+    for these shapes."""
+    s0 = tuple(weights["model.0.conv.weight"].shape)
+    s1 = tuple(weights["model.1.conv.weight"].shape)
+    key = (s0[0], s1[0])
+    if key not in INSTANCES or s0 != (key[0], 1, 3, 3) or s1 != (key[1], key[0], 3, 3):
+        served = ", ".join(f"{k} (scale {v})" for k, v in INSTANCES.items())
+        raise SinInstanciaDeKernel(
+            f"fused stem: no kernel instance for stem weights {s0} and {s1} "
+            f"(TPU_MSLESSEG_SCALE={os.environ.get('TPU_MSLESSEG_SCALE', 'n')}); csrc/stem.cu "
+            f"serves the grayscale-folded (c0, c1) = {served}. Unset "
+            f"TPU_MSLESSEG_PALLAS_STEM to serve this model through the plain blocks"
+        )
+    return key
+
+
 def maybe_build(variables, device, imgsz: int):
     """The one gate for the opt-in fused stem, shared by the predictors:
     the stem's weights when ``TPU_MSLESSEG_PALLAS_STEM=1``, the device is
     CUDA and ``imgsz % 4 == 0``; else None. `variables` is one served
-    state_dict or {plane: state_dict}."""
+    state_dict or {plane: state_dict}. Raises ``SinInstanciaDeKernel`` when the
+    switch is on and the stem's shapes have no kernel instance, so that a
+    predictor fails when it is built and not at its first patient."""
     if not (ENABLED and torch.device(device).type == "cuda" and imgsz % 4 == 0):
         return None
     if "model.0.conv.weight" not in variables:
-        return {p: stem_weights(v) for p, v in variables.items()}
-    return stem_weights(variables)
+        built = {p: stem_weights(v) for p, v in variables.items()}
+        for w in built.values():
+            instance_of(w)
+        return built
+    built = stem_weights(variables)
+    instance_of(built)
+    return built
 
 
 def stem_reference(model, weights, x):
@@ -92,16 +124,17 @@ def _lib():
     fn = lib.stem_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i,
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, i, i, p, p, i, i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def stem_apply(model, weights, x):
-    """Fused stem on grayscale x [M, S, S] (compute dtype) -> P2 [M, 32,
+    """Fused stem on grayscale x [M, S, S] (compute dtype) -> P2 [M, c1,
     S/4, S/4] channels-last in the compute dtype. A CPU tensor goes to the
-    plain version; a CUDA tensor to the kernel, or this raises."""
+    plain version; a CUDA tensor to the kernel instance of the weights'
+    (c0, c1), or this raises."""
     global LAUNCHES
     if x.device.type == "cpu":
         return stem_reference(model, weights, x)
@@ -114,12 +147,7 @@ def stem_apply(model, weights, x):
     m, h, w = x.shape
     if m > 65535:
         raise ValueError(f"stem: at most 65535 images per launch, got {m}")
-    w0, w1 = weights["model.0.conv.weight"], weights["model.1.conv.weight"]
-    if tuple(w0.shape) != (16, 1, 3, 3) or tuple(w1.shape) != (32, 16, 3, 3):
-        raise ValueError(
-            f"stem: the kernel takes scale n's folded stem, [16,1,3,3] and "
-            f"[32,16,3,3], got {tuple(w0.shape)} and {tuple(w1.shape)}"
-        )
+    c0, c1 = instance_of(weights)
     terms = [weights[f"{b}.{leaf}"] for b in _BLOCKS for leaf in _LEAVES]
     for t in terms:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -127,12 +155,16 @@ def stem_apply(model, weights, x):
     x = x.contiguous()
     if x.data_ptr() % 16:  # the kernel reads bf16 pairs and 16-byte rows
         x = x.clone()
-    out = torch.empty((m, h // 4, w // 4, 32), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, h // 4, w // 4, c1), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    # the wider instances' bf16 path lays w1 out in fragment order first
+    wfrag = (torch.empty(9 * c0 * c1, dtype=torch.bfloat16, device=x.device)
+             if bf16 and (c0, c1) != (16, 32) else None)
     fn = _lib()
     with torch.cuda.device(x.device):
         err = fn(
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
-            *(t.data_ptr() for t in terms), out.data_ptr(), m, h, w, BN_EPS,
+            x.data_ptr(), int(bf16), *(t.data_ptr() for t in terms), c0, c1,
+            None if wfrag is None else wfrag.data_ptr(), out.data_ptr(), m, h, w, BN_EPS,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

@@ -118,8 +118,10 @@ class YOLO11Seg(nn.Module):
     Input: NHWC [B, H, W, C] with H, W % 32 == 0 (C is 3, or 1 with a
     stem folded by `fold_gray_stem`); with ``from_p2``, the P2/4 map
     [B, c, H/4, W/4] (channels-last) that the fused stem computed
-    (``model/stem.py``), and ``model.0``/``model.1`` are skipped. Returns a
-    dict of NHWC tensors:
+    (``model/stem.py``), and ``model.0``/``model.1`` are skipped. In train
+    mode (``model.train()``; the model is built in eval mode) every block
+    normalises with batch statistics and updates its running ones
+    (``blocks.Conv``); the reference's ``remat`` has no counterpart here. Returns a dict of NHWC tensors:
       box:   list of 3 [B, Hi, Wi, 4*reg_max] DFL box distributions
       cls:   list of 3 [B, Hi, Wi, nc] class logits
       mcoef: list of 3 [B, Hi, Wi, nm] mask coefficients
@@ -156,6 +158,7 @@ class YOLO11Seg(nn.Module):
             Segment(cfg.nc, cfg.head_ch, cfg.reg_max, cfg.nm,
                     cfg.ch(cfg.npr)),                                 # 23
         )
+        self.eval()  # serves as built; the trainer switches to train mode
 
     def forward(self, x, from_p2: bool = False):
         m = self.model

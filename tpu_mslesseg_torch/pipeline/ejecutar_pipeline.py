@@ -10,7 +10,8 @@ incremental-resume behavior (every stage skips existing artifacts).
 
 Everything that computes runs on the CUDA device; there is no fallback to
 the CPU (``device="cpu"`` exists for callers that ask for it, as the tests
-do). Training is not ported yet (ROADMAP A11): ``--entrenar`` on a fold
+do). Of training, the train step is ported (``train/trainer.py``) but not
+the data, the engine or stage 2 (ROADMAP A4-A6): ``--entrenar`` on a fold
 without weights fails and says so.
 
 Run:  python -m tpu_mslesseg_torch.pipeline.ejecutar_pipeline --completo \
@@ -134,9 +135,10 @@ def ejecutar_pipeline(
             )
             continue
         raise NotImplementedError(
-            f"Fold {k} sin modelo entrenado: el entrenamiento (--entrenar) aún "
-            "no está portado a PyTorch (ROADMAP A11). Entrena con el paquete "
-            "JAX y convierte los pesos a best.pt (model/bridge.py)."
+            f"Fold {k} sin modelo entrenado: el entrenamiento de un fold "
+            "(--entrenar: datos, motor y etapa 2) aún no está portado a PyTorch "
+            "(ROADMAP A4-A6). Entrena con el paquete JAX y convierte los pesos a "
+            "best.pt (model/bridge.py)."
         )
 
     # Patient fast path: stages 3-6 through the consensus predictor (volumes
@@ -261,8 +263,8 @@ def parsear_args(argv=None):
     parser.add_argument("--entrenar", action="store_true")
     parser.add_argument(
         "--train_secuencial", action="store_true",
-        help="Entrenar los folds uno a uno (el entrenamiento aún no está "
-             "portado: ROADMAP A11).",
+        help="Entrenar los folds uno a uno (la etapa 2 aún no está "
+             "portada: ROADMAP A4-A6).",
     )
     parser.add_argument("--limpiar", action="store_true")
     parser.add_argument(

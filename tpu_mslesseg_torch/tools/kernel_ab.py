@@ -74,6 +74,25 @@ _STORE = ((
     "if (c0 + i < w2) orow[idx] =",
     "if (c0 + i == -1) orow[idx] =",
 ),)
+# the stem's ablations are of scale n's kernels (the ones this tool times),
+# which stem.cu holds between these two lines; the wider instances after
+# them repeat some of the text
+STEM_N_BEGIN = "// BEGIN scale n's kernels"
+STEM_N_END = "// END scale n's kernels"
+
+
+def ablatable(base: str, text: str) -> tuple[str, str, str]:
+    """``<base>.cu`` as (what precedes, the part the ablations rewrite, what
+    follows)."""
+    if base != "stem":
+        return "", text, ""
+    head, begin, rest = text.partition(STEM_N_BEGIN)
+    body, end, tail = rest.partition(STEM_N_END)
+    if not (begin and end):
+        raise RuntimeError(f"stem.cu no longer holds {STEM_N_BEGIN!r} and {STEM_N_END!r}")
+    return head + begin, body, end + tail
+
+
 ABLATIONS = {
     "stem_without_b1_silu": _B1_ACT,
     "stem_without_b0_silu": _B0_ACT,
@@ -193,10 +212,18 @@ def _stem_runs(libs, x, weights, stream):
     runs, outs = {}, {}
     for name, lib in libs.items():
         fn = lib.stem_forward
-        fn.argtypes = [P, I] + [P] * 10 + [P, I, I, I, F, P]
         outs[name] = torch.empty((m, h // 4, w // 4, 32), dtype=x.dtype, device=x.device)
-        args = [x.data_ptr(), 1, *(t.data_ptr() for t in weights), outs[name].data_ptr(),
-                m, h, w, 1e-3, stream]
+        tail = [outs[name].data_ptr(), m, h, w, 1e-3, stream]
+        # a library without the symbol has the first interface: scale n only
+        version = lib.stem_abi_version() if hasattr(lib, "stem_abi_version") else 1
+        if version == 2:  # an instance a scale: n's here
+            fn.argtypes = [P, I] + [P] * 10 + [I, I, P, P, I, I, I, F, P]
+            args = [x.data_ptr(), 1, *(t.data_ptr() for t in weights), 16, 32, None, *tail]
+        elif version == 1:
+            fn.argtypes = [P, I] + [P] * 10 + [P, I, I, I, F, P]
+            args = [x.data_ptr(), 1, *(t.data_ptr() for t in weights), *tail]
+        else:
+            raise RuntimeError(f"{name}: stem_abi_version {version} is not known")
         runs[name] = lambda fn=fn, args=args: fn(*args)
     return runs, outs
 
@@ -330,15 +357,15 @@ def main(argv=None) -> int:
                                           (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS)):
                 if not srcs:
                     continue
-                text = srcs[base].read_text()
+                head, body, tail = ablatable(base, srcs[base].read_text())
                 for name, subs in ablations.items():
-                    src = text
+                    src = body
                     for old, new in subs:
                         if src.count(old) != 1:
                             raise RuntimeError(f"{name}: {base}.cu no longer holds {old!r}")
                         src = src.replace(old, new)
                     srcs[name] = tmp / f"{name}.cu"
-                    srcs[name].write_text(src)
+                    srcs[name].write_text(head + src + tail)
         jobs = [(n, s, tmp) for n, s in {**stem_src, **union_src, **clahe_src}.items()]
         with ThreadPoolExecutor(len(jobs)) as pool:
             libs = dict(pool.map(_build_lib, jobs))
