@@ -139,6 +139,24 @@ pipeline's log lines):
    not from 0.1 (``phase_train_f32`` says why); three BatchNorm biases
    whose gradient is rounding noise are left out.
 
+15. train_cli: train a fold, then serve it. Four synthetic 182x218x182
+   patients (phase 9's lesion box), ``k_folds=2``, FLAIR, ``--mejora
+   CLAHE``, ``--num_cortes 50``, the stem on, in a temporary directory;
+   ``ejecutar_pipeline.main([... "--completo", "--entrenar",
+   "--train_secuencial", "--epochs", "3"])`` in-process: per fold the
+   dataset on the card, ``batch -1`` resolved by the card's probe (an empty
+   cache file), three epochs of YOLO11n-seg at 640 in bf16 (mosaic, train
+   step, validation, ``results.csv``, checkpoints), then ``rapido`` serves
+   every patient from the fold's ``best.pt``. Checks each fold's files
+   (``args.yaml``, the dataset YAML, ``results.csv`` with three rows of
+   finite losses, ``best.pt``, ``last.pt``, ``fitness.json``), the cadence
+   of every micro-step, that ``best.pt`` serves through ``SlicePredictor``
+   with the fused stem, every volume/JSON pair of the serve, that the serve
+   launched all four kernels, and that the same command again trains
+   nothing. Prints the batch before and after the dataset rule, the probe's
+   peaks, seconds an epoch, a micro-step and a validation pass, images/s
+   and the peak memory.
+
 An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
 with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
 phase 2's slices: all must be equal (LT floors ``c*log1p(x)``, so a
@@ -162,6 +180,7 @@ checkout of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import os
 import shutil
@@ -1209,6 +1228,208 @@ def phase_train_f32(torch, P, dev) -> None:
         raise AssertionError(f"f32 train steps on the card and on the CPU disagree: {worst}")
 
 
+TRAIN_CLI_EPOCHS = 3  # phase 15: epochs a fold
+TRAIN_LOSS_COLS = (slice(2, 6), slice(14, 18))  # results.csv: train and val loss columns
+
+
+def train_cli_args(*extra) -> list:
+    return ["--plano", "axial", "--modalidad", "FLAIR", "--num_cortes", str(N_PER_PLANE),
+            "--mejora", "CLAHE", "--epochs", str(TRAIN_CLI_EPOCHS), "--k_folds",
+            str(CLI_K_FOLDS), "--completo", "--entrenar", "--train_secuencial", *extra]
+
+
+def timed_wrapper(torch, fn, record):
+    """`fn` with the seconds of each call, the card synchronised on both
+    sides, passed to `record(seconds, args, result)`."""
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        record(time.perf_counter() - t0, a, out)
+        return out
+    return wrapped
+
+
+def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
+    """Phase 15: ``main([... "--completo", "--entrenar", "--train_secuencial",
+    "--epochs", "3"])`` on a tree of 4 synthetic patients, 2 folds: each fold
+    trained at full width with ``batch -1``, then every patient served from
+    the fold's ``best.pt``; a second run trains nothing."""
+    ds = root / "MSLesSeg-Dataset" / "train"
+    for pid in CLI_PATIENTS:
+        vol, gt = patient_volume(pid, CLI_LESION)
+        P.nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
+        P.nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
+    modelo = P.Modelo(plano="axial", num_cortes=N_PER_PLANE, modalidad=["FLAIR"],
+                      k_folds=CLI_K_FOLDS, mejora="CLAHE")
+    rec = {"auto": [], "peaks": [], "folds": [], "steps": [], "val_s": [], "serve": []}
+
+    def auto(*a, **kw):
+        free, probes = torch.cuda.mem_get_info()[0], len(rec["peaks"])
+        b = real_auto(*a, **kw)
+        rec["auto"].append({"batch": b, "free_bytes": free, "probed": len(rec["peaks"]) > probes})
+        return b
+
+    def peak(*a, **kw):
+        rec["peaks"].append((a[4], real_peak(*a, **kw)))
+        return rec["peaks"][-1][1]
+
+    def step_record(sec, a, out):
+        state = a[0]
+        rec["steps"].append({"fold": len(rec["folds"]) + 1, "step": state.step - 1,
+                             "applied": bool(out["applied"]), "s": sec, "cfg": state.cfg,
+                             "spe": state.steps_per_epoch,
+                             "model": (str(state.model.dtype).removeprefix("torch."),
+                                       state.model.cfg.scale, state.cfg.imgsz)})
+
+    def serve(*a, **kw):
+        before = read_launches(counters)
+        ok = real_rapido(*a, **kw)
+        torch.cuda.synchronize()
+        after = read_launches(counters)
+        rec["serve"].append({k: after[k] - before[k] for k in after})
+        return ok
+
+    real_auto, real_rapido = P.autobatch.auto_batch_size, P.rapido.ejecutar_fold_rapido
+    real_peak = P.autobatch.probe_peak
+    wrappers = [
+        (P.autobatch, "auto_batch_size", auto),
+        (P.autobatch, "probe_peak", peak),
+        (P.engine, "train_fold", timed_wrapper(
+            torch, P.engine.train_fold, lambda sec, a, out: rec["folds"].append((sec, out)))),
+        (P.trainer, "train_step", timed_wrapper(torch, P.trainer.train_step, step_record)),
+        (P.validate, "run_validation", timed_wrapper(
+            torch, P.validate.run_validation, lambda sec, a, out: rec["val_s"].append(sec))),
+        (P.rapido, "ejecutar_fold_rapido", serve),
+    ]
+    cache = root / "autobatch.json"  # empty: the probe runs on the card
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in wrappers:
+            stack.enter_context(switched(module, name, fn))
+        old_cache = os.environ.get("TPU_MSLESSEG_AUTOBATCH_CACHE")
+        os.environ["TPU_MSLESSEG_AUTOBATCH_CACHE"] = str(cache)
+        stack.callback(lambda: os.environ.pop("TPU_MSLESSEG_AUTOBATCH_CACHE") if old_cache is None
+                       else os.environ.update(TPU_MSLESSEG_AUTOBATCH_CACHE=old_cache))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            P.orch.main(train_cli_args())
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches(counters)
+        peak = torch.cuda.max_memory_allocated()
+        P.logging_setup.configure_logging(log_file=None)
+
+        # every fold: its artifacts, three epochs of finite losses, the cadence
+        folds = sorted(set(CLI_PATIENTS.values()))
+        if len(rec["folds"]) != len(folds):
+            raise AssertionError(f"{len(rec['folds'])} folds trained, not {len(folds)}")
+        epoch_s, rows_by_fold = {}, {}
+        for k, (_, summary) in zip(folds, rec["folds"]):
+            cfg_k = P.ConfigTrain(modelo=modelo, epochs=TRAIN_CLI_EPOCHS, fold_test=k, root=root)
+            fold = cfg_k.fold_dir
+            have = {str(p.relative_to(fold)) for p in fold.rglob("*") if p.is_file()}
+            want = {"args.yaml", f"{modelo.model_string}.yaml", "results.csv", "weights/best.pt",
+                    "weights/last.pt", "weights/fitness.json"}
+            if have != want:
+                raise AssertionError(f"fold {k}: files {sorted(have)}, want {sorted(want)}")
+            with open(fold / "results.csv") as f:
+                rows = list(csv.reader(f))[1:]
+            if [r[0] for r in rows] != [str(e) for e in range(1, TRAIN_CLI_EPOCHS + 1)]:
+                raise AssertionError(f"fold {k}: results.csv epochs {[r[0] for r in rows]}")
+            for r in rows:
+                losses = [float(v) for c in TRAIN_LOSS_COLS for v in r[c]]
+                if not all(np.isfinite(losses)) or not all(v > 0 for v in losses[:4]):
+                    raise AssertionError(f"fold {k}: losses {losses} in results.csv")
+            times = [float(r[1]) for r in rows]
+            epoch_s[k] = [times[0]] + [b - a for a, b in zip(times, times[1:])]
+            rows_by_fold[k] = rows
+            steps = [s for s in rec["steps"] if s["fold"] == folds.index(k) + 1]
+            mask, _, _ = P.trainer.apply_cadence(steps[0]["cfg"], steps[0]["spe"])
+            if [s["applied"] for s in steps] != mask[: len(steps)].tolist() or \
+                    [s["step"] for s in steps] != list(range(len(steps))):
+                raise AssertionError(f"fold {k}: the optimizer fired off the cadence")
+            if len(steps) != TRAIN_CLI_EPOCHS * summary["steps_per_epoch"]:
+                raise AssertionError(f"fold {k}: {len(steps)} micro-steps")
+            # best.pt serves: SlicePredictor on the fold's first patient
+            pid = next(p for p, f in CLI_PATIENTS.items() if f == k)
+            pac = P.Paciente(id=pid, plano="axial", modalidad=["FLAIR"], mejora="CLAHE",
+                             dataset_dir=ds)
+            raw = torch.from_numpy(pac.cortes_imagen_batch(pac.indices_a_usar(N_PER_PLANE),
+                                                           "FLAIR"))
+            smodel, _, imgsz = P.create_model_from_env()
+            pred = P.SlicePredictor(smodel, P.load_checkpoint(cfg_k.best_ckpt),
+                                    tuple(raw.shape[1:]), imgsz=imgsz, device=dev)
+            masks = pred(P.enhance.enhance_for_model(raw.to(dev), "CLAHE"))
+            if tuple(masks.shape) != tuple(raw.shape) or pred._stem_w is None:
+                raise AssertionError(f"fold {k}: best.pt did not serve through SlicePredictor")
+        trained = {s["model"] for s in rec["steps"]}
+        if trained != {("bfloat16", "n", IMGSZ)}:
+            raise AssertionError(f"trained {trained}, not YOLO11n-seg in bf16 at {IMGSZ}")
+        probe = rec["auto"][0]
+        if not probe["probed"] or [b for b, _ in rec["peaks"][:2]] != list(P.autobatch.PROBES):
+            raise AssertionError(f"batch -1 was not resolved by the card's probe: {rec}")
+
+        # the serve: every volume/JSON pair, all four kernels launched
+        exp = f"{modelo.base_path}_{TRAIN_CLI_EPOCHS}epochs"
+        want_out = {Path(d) / exp / f"fold{f}" / pid / f"{pid}_axial{suffix}"
+                    for pid, f in CLI_PATIENTS.items()
+                    for d, suffix in (("pred_vols", ".nii.gz"), ("results", "_results.json"))}
+        want_out |= {Path("results") / exp / f"fold{f}" / f"fold{f}_axial_results.json"
+                     for f in folds}
+        want_out.add(Path("results") / exp / "global_axial_results.json")
+        check_tree(tree(root, "pred_vols", "results"), want_out, "phase 15: pred_vols/, results/")
+        serve_launches = {k: sum(r[k] for r in rec["serve"]) for k in KERNELS}
+        for k, n in serve_launches.items():
+            if n < 1:
+                raise AssertionError(f"the serve after training did not launch the {k} kernel")
+
+        # the same command again trains nothing
+        stamps = {p: p.stat().st_mtime_ns for p in (root / "trains").rglob("*") if p.is_file()}
+        os.chdir(root)
+        try:
+            P.orch.main(train_cli_args())
+        finally:
+            os.chdir(cwd)
+            P.logging_setup.configure_logging(log_file=None)
+        if len(rec["folds"]) != len(folds) or \
+                {p: p.stat().st_mtime_ns for p in (root / "trains").rglob("*")
+                 if p.is_file()} != stamps:
+            raise AssertionError("a second run trained again")
+
+    step_s = [s["s"] for s in rec["steps"]]
+    later = [s["s"] for s in rec["steps"] if s["step"] > 0]
+    batch = rec["folds"][0][1]["batch_size"]
+    emit({"phase": "train_cli", "model": "YOLO11n-seg", "trained": sorted(trained),
+          "patients": len(CLI_PATIENTS), "k_folds": CLI_K_FOLDS, "epochs": TRAIN_CLI_EPOCHS,
+          "summaries": [s for _, s in rec["folds"]], "launches": launches,
+          "serve_launches": serve_launches, "second_run_trained_nothing": True,
+          "best_pt_served_by_slice_predictor": True,
+          "batch_probe": rec["auto"], "budget_fraction": P.autobatch.DEFAULT_FRACTION,
+          "batch_before_dataset_rule": probe["batch"], "batch_after_dataset_rule": batch,
+          "probe_peaks_bytes": rec["peaks"], "micro_steps": len(step_s),
+          "optimizer_fired_at": {k: [s["step"] for s in rec["steps"]
+                                     if s["applied"] and s["fold"] == i + 1]
+                                 for i, k in enumerate(folds)},
+          "informational": {
+              "run_s": run_s, "fold_s": [sec for sec, _ in rec["folds"]], "epoch_s": epoch_s,
+              "first_micro_step_s": [s["s"] for s in rec["steps"] if s["step"] == 0],
+              "s_per_micro_step_median": float(np.median(later)) if later else None,
+              "s_per_validation_pass": rec["val_s"],
+              "images_per_s": batch / float(np.median(later)) if later else None,
+              "max_memory_allocated_bytes": peak,
+              "memory_allocated_before_the_phase_bytes": held_before, **card}})
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1244,7 +1465,7 @@ def main() -> int:
     from tpu_mslesseg_torch.pipeline.stages import generar_predicciones as gen_stage
     from tpu_mslesseg_torch.preproc import clahe, enhance
     from tpu_mslesseg_torch.tools.train_batches import synthetic_batch as train_batch
-    from tpu_mslesseg_torch.train import trainer
+    from tpu_mslesseg_torch.train import autobatch, engine, trainer, validate
     from tpu_mslesseg_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
     # the port's modules the CLI phases use
@@ -1258,7 +1479,8 @@ def main() -> int:
         profiling=profiling, orch=orch, gen=gen_stage, logging_setup=logging_setup,
         mu=mu, stem=stem, clahe=clahe, detect_and_union=detect_and_union,
         ConsensusPredictor=ConsensusPredictor, fold_gray_stem=fold_gray_stem,
-        trainer=trainer, synthetic_batch=train_batch,
+        trainer=trainer, synthetic_batch=train_batch, autobatch=autobatch, engine=engine,
+        validate=validate, rapido=rapido,
     )
 
     dev = torch.device(DEVICE)
@@ -1821,10 +2043,16 @@ def main() -> int:
     train_launches = read_launches(counters)  # the train step holds no kernel: all 0
     torch.cuda.empty_cache()
     phase_train_f32(torch, P, dev)
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: train a fold through the CLI, then serve it -------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_cli = phase_train_cli(torch, P, Path(tmp), counters, dev, card)
 
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
                "cli_chain": chain["launches"], "cli_default": default["launches"],
-               "lote_scale_s": scale_s_launches, "train": train_launches}
+               "lote_scale_s": scale_s_launches, "train": train_launches,
+               "train_cli_then_serve": train_cli["launches"]}
 
     for name in KERNELS:
         max_err[name] = max(max_err[name], chain["kernels"][name]["max_abs_err"])

@@ -44,12 +44,16 @@ def test_importing_every_port_module_leaves_jax_out():
 
 
 TRAIN_MODULES = ("train.assigner", "train.losses", "train.trainer", "train.checkpoint",
-                 "tools.train_batches", "model.blocks", "model.bridge", "model.yolo11")
+                 "tools.train_batches", "model.blocks", "model.bridge", "model.yolo11",
+                 "train.data", "train.augment", "train.validate", "train.engine",
+                 "train.autobatch", "evalx.seg_map", "io.torch_pt", "model.import_pt",
+                 "pipeline.yaml_out", "pipeline.stages.train")
 
 
 def test_the_training_modules_load_no_other_framework():
-    """The train step's modules import torch and numpy: no jax, flax or
-    optax, and nothing of the JAX package."""
+    """The training modules import torch, numpy and scipy: no jax, flax,
+    optax or ml_dtypes, nothing of the JAX package, and no PyYAML (the card's
+    machine lists none: the port writes its YAML itself)."""
     mods = _port_modules()
     for name in TRAIN_MODULES:
         assert f"tpu_mslesseg_torch.{name}" in mods, name
@@ -57,7 +61,7 @@ def test_the_training_modules_load_no_other_framework():
         "import importlib, json, sys\n"
         f"for m in {TRAIN_MODULES!r}: importlib.import_module('tpu_mslesseg_torch.' + m)\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'tpu_mslesseg'))))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'yaml', 'tpu_mslesseg'))))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -68,13 +72,26 @@ def test_the_training_modules_load_no_other_framework():
         path = Path(tpu_mslesseg_torch.__path__[0]) / (name.replace(".", "/") + ".py")
         for line in path.read_text().splitlines():
             assert not line.strip().startswith(
-                ("import flax", "from flax", "import optax", "from optax")), (path, line)
+                ("import flax", "from flax", "import optax", "from optax", "import yaml",
+                 "import ml_dtypes")), (path, line)
+
+
+def test_the_training_entry_points_default_to_the_card():
+    import inspect
+
+    from tpu_mslesseg_torch.pipeline.stages import train as stage
+    from tpu_mslesseg_torch.train import autobatch, data, engine, trainer, validate
+
+    for fn in (engine.train_fold, stage.ejecutar_flujo_train, stage.ejecutar_train_pipeline,
+               autobatch.auto_batch_size, validate.run_validation, data.build_dataset,
+               trainer.init_train_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
 CLIS = ("pipeline.ejecutar_pipeline", "pipeline.stages.setup", "pipeline.stages.extraer_dataset",
         "pipeline.stages.generar_predicciones", "pipeline.stages.reconstruir_volumen",
         "pipeline.stages.generar_consenso", "pipeline.stages.eval",
-        "pipeline.stages.promediar_folds")
+        "pipeline.stages.promediar_folds", "pipeline.stages.train")
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,8 @@ and ``best.pt`` checkpoints for 3 planes x 2 folds.
   (the JAX three-plane run is in that package's slow set), and against the
   port's own ``rapido`` patient mode;
 * stage 2: a trained fold skips, an untrained fold warns without
-  ``--entrenar`` and stops the run with it; ``main`` exits 1 without a CUDA
+  ``--entrenar``; with it, the default of training all folds at once stops
+  the run (ROADMAP A7); ``main`` exits 1 without a CUDA
   device; the flag vocabulary and the ``--rapido`` default equal the JAX
   package's.
 
@@ -232,8 +233,11 @@ def test_an_untrained_fold_without_entrenar_warns_and_goes_on(untrained, caplog)
 
 
 def test_entrenar_on_an_untrained_fold_stops_and_names_the_roadmap(untrained, monkeypatch):
+    """Full mode with no fold trained defaults to training all folds at once,
+    which is not ported: the run stops and names ROADMAP A7 (the fold-by-fold
+    ``--train_secuencial`` path is ``test_torch_port_train_stage``'s)."""
     with Env(cwd=untrained):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4-A6"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             torch_orch.ejecutar_pipeline(modelo(TModelo, "axial", CASE), epochs=EPOCHS,
                                          entrenar=True, device="cpu")
         # through the CLI: logged, exit code 1 (the run here is on the CPU)
@@ -243,15 +247,15 @@ def test_entrenar_on_an_untrained_fold_stops_and_names_the_roadmap(untrained, mo
                 "--mejora", "CLAHE", "--epochs", str(EPOCHS), "--k_folds", str(K_FOLDS),
                 "--completo", "--entrenar"]
         try:
-            for extra in ([], ["--train_secuencial"]):
-                with pytest.raises(SystemExit) as exc:
-                    torch_orch.main(argv + extra)
-                assert exc.value.code == 1
-                log = (untrained / "pipeline.log").read_text()
-                assert "Error en el pipeline" in log and "ROADMAP A4-A6" in log
+            with pytest.raises(SystemExit) as exc:
+                torch_orch.main(argv)
+            assert exc.value.code == 1
+            log = (untrained / "pipeline.log").read_text()
+            assert "Error en el pipeline" in log and "ROADMAP A7" in log
         finally:
             tlog.configure_logging(log_file=None)
     assert not (untrained / "pred_vols").exists()
+    assert not (untrained / "trains").exists()
 
 
 def test_a_trained_fold_skips_stage_two_even_with_entrenar(inputs, tmp_path, caplog):

@@ -32,7 +32,6 @@ after the first apply (8% in the loss at the second micro-step). So:
   near zero), the three biases above left out.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -324,10 +323,15 @@ def test_results_writer_and_fitness(tmp_path):
 
 def test_amp_computes_in_bf16_and_keeps_state_and_losses_in_float32():
     """The reference's ``amp`` is a model created with a bf16 compute dtype
-    (the config carries no flag that could contradict it): parameters, their
-    gradients, the optimizer's moments, the EMA, the BatchNorm statistics
-    and every loss part stay float32."""
-    assert "amp" not in {f.name for f in dataclasses.fields(ttr.TrainConfig)}
+    (``TrainConfig.amp``, on by default as the reference's, is read where
+    stage 2 creates the model; the step computes in the model's dtype):
+    parameters, their gradients, the optimizer's moments, the EMA, the
+    BatchNorm statistics and every loss part stay float32."""
+    assert ttr.TrainConfig().amp is jtr.TrainConfig().amp is True
+    from tpu_mslesseg_torch.pipeline.stages import train as stage
+
+    assert stage._compute_dtype(ttr.TrainConfig()) is torch.bfloat16
+    assert stage._compute_dtype(ttr.TrainConfig(amp=False)) is torch.float32
     tmodel, _ = t_create(nc=1, scale="n", dtype=torch.bfloat16)
     state = ttr.init_train_state(tmodel, ttr.TrainConfig(**BASE), SPE, device="cpu")
     seen = []

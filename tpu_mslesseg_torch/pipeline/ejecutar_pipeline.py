@@ -10,9 +10,10 @@ incremental-resume behavior (every stage skips existing artifacts).
 
 Everything that computes runs on the CUDA device; there is no fallback to
 the CPU (``device="cpu"`` exists for callers that ask for it, as the tests
-do). Of training, the train step is ported (``train/trainer.py``) but not
-the data, the engine or stage 2 (ROADMAP A4-A6): ``--entrenar`` on a fold
-without weights fails and says so.
+do). Stage 2 trains fold by fold (``--entrenar --train_secuencial``);
+training all folds at once, the reference's default for a full experiment
+with no fold trained, is not ported (ROADMAP A7) and stops the run with a
+message that says to pass ``--train_secuencial``.
 
 Run:  python -m tpu_mslesseg_torch.pipeline.ejecutar_pipeline --completo \
           --plano axial --modalidad FLAIR --num_cortes P50 --epochs 50
@@ -37,6 +38,7 @@ from tpu_mslesseg_torch.pipeline.stages import (
     promediar_folds,
     reconstruir_volumen,
     setup as setup_stage,
+    train as train_stage,
 )
 from tpu_mslesseg_torch.preproc.slices import int_o_percentil
 
@@ -121,25 +123,34 @@ def ejecutar_pipeline(
         modelo.k_folds, paciente.id if paciente is not None else None
     )
 
-    # Stage 2: training (optional; skipped per-fold when weights exist).
-    # The decisions are the reference's; the training stage itself is not
-    # ported yet, so a fold that would have to be trained stops the run
-    # (`train_cfg` and `train_paralelo` are accepted for that stage).
-    for k in folds:
-        if existe_modelo_entrenado(modelo, epochs, k):
-            logger.skip(f"⏩ Modelo del fold {k} ya entrenado.")
-            continue
-        if not entrenar:
-            logger.warning(
-                f"⚠️ Fold {k} sin modelo entrenado y --entrenar no indicado."
-            )
-            continue
-        raise NotImplementedError(
-            f"Fold {k} sin modelo entrenado: el entrenamiento de un fold "
-            "(--entrenar: datos, motor y etapa 2) aún no está portado a PyTorch "
-            "(ROADMAP A4-A6). Entrena con el paquete JAX y convierte los pesos a "
-            "best.pt (model/bridge.py)."
-        )
+    # Stage 2: training (optional; skipped per fold when weights exist).
+    # A full experiment with no fold trained defaults, in the reference, to
+    # training all folds at once; that engine is not ported, and it must not
+    # quietly become the fold-by-fold loop. Patient mode, --train_secuencial
+    # and a partly trained experiment train fold by fold.
+    untrained = folds_sin_entrenar(modelo, epochs, folds)
+    if (
+        entrenar and paciente is None and train_paralelo
+        and len(folds) > 1 and len(untrained) == len(folds)
+    ):
+        with stage_timer("train_paralelo"):
+            train_stage.ejecutar_train_paralelo(modelo, epochs, train_cfg=train_cfg,
+                                                limpiar=limpiar)
+    else:
+        for k in folds:
+            if existe_modelo_entrenado(modelo, epochs, k):
+                logger.skip(f"⏩ Modelo del fold {k} ya entrenado.")
+                continue
+            if not entrenar:
+                logger.warning(
+                    f"⚠️ Fold {k} sin modelo entrenado y --entrenar no indicado."
+                )
+                continue
+            with stage_timer(f"train_fold{k}"):
+                train_stage.ejecutar_train_pipeline(
+                    modelo, epochs=epochs, fold_test=k, limpiar=limpiar,
+                    train_cfg=train_cfg, device=device,
+                )
 
     # Patient fast path: stages 3-6 through the consensus predictor (volumes
     # + metrics straight off the device; falls back to the stage chain when
@@ -263,8 +274,8 @@ def parsear_args(argv=None):
     parser.add_argument("--entrenar", action="store_true")
     parser.add_argument(
         "--train_secuencial", action="store_true",
-        help="Entrenar los folds uno a uno (la etapa 2 aún no está "
-             "portada: ROADMAP A4-A6).",
+        help="Entrenar los folds uno a uno (por defecto, en modo completo sin ningún "
+             "fold entrenado: todos a la vez, no portado: ROADMAP A7).",
     )
     parser.add_argument("--limpiar", action="store_true")
     parser.add_argument(

@@ -9,7 +9,7 @@ Mirrors the reference's Config classes (``configs/Config*.py``) and its
 canonical directory scheme (SURVEY §1):
 
     datasets/<mejora>/<mods>_<n>c_<k>folds/fold<j>/P<i>/<plano>/{images,GT_masks,labels,pred_masks}
-    trains/<mejora>/<mods>_<n>c_<k>folds_<e>epochs/<plano>/fold<j>/{weights/best.pt,results.csv}
+    trains/<mejora>/<mods>_<n>c_<k>folds_<e>epochs/<plano>/fold<j>/{weights/{best,last}.pt,results.csv,args.yaml}
     pred_vols/<mejora>/<mods>_<n>c_<k>folds_<e>epochs/fold<j>/P<i>/P<i>_<plano>.nii.gz
     results/<mejora>/<mods>_<n>c_<k>folds_<e>epochs/fold<j>/[P<i>/]..._results.json
     GT/{train,test}/P<i>/P<i>_MASK.nii.gz

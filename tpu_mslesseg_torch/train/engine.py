@@ -1,0 +1,206 @@
+"""Training one cross-validation fold, end to end.
+
+Port of ``tpu_mslesseg/train/engine.py``, the reference's ``entrenar_fold``
+(``train.py:346-389``: copy the fold's files into subsets, write a dataset
+YAML, ``YOLO(...).train(...)``). Here the fold's datasets are built on the
+device (no file copies) and each epoch is a Python loop of micro-steps:
+mosaic augmentation (closed for the last ``close_mosaic`` epochs), the train
+step with its optimizer cadence and EMA, a validation pass for the losses
+and box/mask mAP, a ``results.csv`` row, the fitness and the best/last
+checkpoints. Every decision is the reference's: the batch rules, resume
+from ``last.pt``, validation every ``val_every`` epochs and at the last,
+``last.pt`` every 10 epochs and at the end, ``best.pt`` when the fitness is
+at least the best so far, patience counted in validations.
+
+Not ported: several devices (ROADMAP A7) and the training figures
+(``train/plots.py``, ROADMAP A8): with ``plots`` on, the engine says once
+that it writes none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+from pathlib import Path
+
+import torch
+
+from tpu_mslesseg_torch.core.device import exigir, kernels_de
+from tpu_mslesseg_torch.model.yolo11 import create_model
+from tpu_mslesseg_torch.pipeline import yaml_out
+from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
+from tpu_mslesseg_torch.train import augment, autobatch, checkpoint, trainer, validate
+from tpu_mslesseg_torch.train import data as tdata
+from tpu_mslesseg_torch.train.losses import LossConfig
+from tpu_mslesseg_torch.train.trainer import TrainConfig, fitness
+
+logger = get_logger(__file__)
+
+LAST_EVERY = 10  # epochs between last.pt saves (and the final epoch)
+
+
+def _write_args_yaml(path, cfg: TrainConfig, **extra) -> None:
+    payload = {**dataclasses.asdict(cfg), **extra}
+    payload = {k: (list(v) if isinstance(v, (tuple, set)) else v) for k, v in payload.items()}
+    yaml_out.write(path, payload, sort_keys=True)
+
+
+def train_fold(
+    model,
+    fold_test: int,
+    patients: list,
+    plano: str,
+    modalidades: list,
+    mejora: str | None,
+    num_cortes: int | None,
+    dataset_dir,
+    output_dir,
+    cfg: TrainConfig = TrainConfig(),
+    k_folds: int = 5,
+    val_every: int = 1,
+    resume: bool = True,
+    device="cuda",
+) -> dict:
+    """Train one fold of `patients` on `device` (raises when it cannot be
+    used). Returns a summary dict."""
+    dev = exigir(device, kernels_de(mejora))
+    out = Path(output_dir)
+    weights = out / "weights"
+    weights.mkdir(parents=True, exist_ok=True)
+
+    train_ids, test_ids = tdata.fold_patient_split(patients, fold_test, k_folds)
+    logger.info(f"🧠 Fold {fold_test}: train={len(train_ids)} test={len(test_ids)} pacientes")
+    _write_args_yaml(out / "args.yaml", cfg, plano=plano, modalidades=modalidades, mejora=mejora,
+                     num_cortes=num_cortes, fold_test=fold_test, k_folds=k_folds)
+
+    train_set = tdata.build_dataset(train_ids, plano, modalidades, mejora, num_cortes,
+                                    dataset_dir, train_size=cfg.imgsz, device=dev)
+    try:
+        val_set = tdata.build_dataset(test_ids, plano, modalidades, mejora, num_cortes,
+                                      dataset_dir, train_size=cfg.imgsz,
+                                      max_inst=train_set.max_inst, device=dev)
+    except (ValueError, FileNotFoundError) as e:
+        logger.warning(f"⚠️ Fold {fold_test} sin cortes de validación: {e}")
+        val_set = None
+    logger.info(f"📦 Dataset en dispositivo: {len(train_set)} cortes train, "
+                f"{len(val_set) if val_set else 0} val, max_inst={train_set.max_inst}")
+
+    acfg = {m: augment.AugConfig(imgsz=cfg.imgsz, max_inst=train_set.max_inst, mosaic=m)
+            for m in (True, False)}
+    # batch=-1 (the reference's default): the largest batch the card holds
+    if cfg.batch_size == -1:
+        cfg = dataclasses.replace(cfg, batch_size=autobatch.auto_batch_size(
+            model, cfg, train_set, acfg[True], device=dev))
+    # never larger than the dataset: a power of two around n/2, so a tiny
+    # dataset still gives several steps an epoch
+    if cfg.batch_size > len(train_set):
+        eff = max(1 << max((len(train_set) // 2).bit_length() - 1, 2), 4)
+        logger.info(f"📉 Batch ajustado a {eff} (dataset de {len(train_set)} cortes).")
+        cfg = dataclasses.replace(cfg, batch_size=eff)
+
+    steps_per_epoch = max(len(train_set) // cfg.batch_size, 1)
+    state = trainer.init_train_state(model, cfg, steps_per_epoch, device=dev)
+    start_epoch = 1
+    last_ckpt = weights / "last.pt"
+    if resume and checkpoint.checkpoint_exists(last_ckpt):
+        try:
+            state.load_state_dict(checkpoint.load_checkpoint(last_ckpt))
+            start_epoch = state.step // steps_per_epoch + 1
+            logger.info(f"🔁 Reanudando desde la época {start_epoch} (last.pt).")
+        except (OSError, RuntimeError, KeyError, ValueError, pickle.UnpicklingError) as e:
+            logger.warning(f"⚠️ No se pudo reanudar desde last.pt: {e}")
+            state = trainer.init_train_state(model, cfg, steps_per_epoch, device=dev)
+    loss_cfg = LossConfig(imgsz=cfg.imgsz, max_fg=cfg.max_fg)
+    # validation runs on a second module holding the EMA parameters and the
+    # live BatchNorm statistics: the training model is never overwritten
+    val_model = create_model(nc=model.cfg.nc, scale=model.cfg.scale, dtype=model.dtype)[0] \
+        if val_set is not None else None
+    results = trainer.ResultsWriter(out / "results.csv", append=start_epoch > 1,
+                                    from_epoch=start_epoch)
+    sched = trainer.lr_schedule(cfg, steps_per_epoch)
+    sched_bias = trainer.lr_schedule(cfg, steps_per_epoch, start=cfg.warmup_bias_lr)
+    dd = train_set.as_dict()
+    if cfg.plots:
+        logger.warning("⚠️ plots: las figuras de entrenamiento no están portadas (ROADMAP A8); "
+                       "no se escribe ninguna.")
+
+    # the best fitness lives beside the weights, so a resumed run never
+    # demotes an earlier, better best.pt; validations since the last
+    # improvement are rebuilt from its epoch and the validation cadence
+    best_fit, best_epoch = checkpoint.load_stopper_state(weights, start_epoch)
+    vals_since_best = max(0, (start_epoch - 1 - best_epoch) // max(val_every, 1))
+    epochs_run = start_epoch - 1
+    for epoch in range(start_epoch, cfg.epochs + 1):
+        use_mosaic = epoch <= cfg.epochs - cfg.close_mosaic
+        idx = tdata.epoch_indices(state.gen, len(train_set), cfg.batch_size, use_mosaic)
+        parts = []
+        for i in range(idx.shape[0]):
+            params = augment.draw_params(state.gen, acfg[use_mosaic], cfg.batch_size)
+            m = trainer.train_step(state, augment.make_batch(params, dd, idx[i], acfg[use_mosaic]))
+            parts.append(torch.stack([m[k] for k in validate.LOSS_PARTS]))
+        # the epoch's mean train losses: one fetch from the device an epoch
+        train_losses = dict(zip(validate.LOSS_PARTS, torch.stack(parts).mean(0).tolist()))
+
+        if val_set is not None and (epoch % val_every == 0 or epoch == cfg.epochs):
+            val_metrics, val_losses = validate.run_validation(
+                val_model, state.served_state_dict(), val_set, loss_cfg,
+                batch_size=min(cfg.batch_size, 16), imgsz=cfg.imgsz, device=dev)
+        else:
+            val_metrics, val_losses = {}, {}
+
+        # the learning rate the last micro-step's schedule gives, as logged
+        last = state.step - 1
+        results.write_epoch(epoch, train_losses, val_metrics, val_losses,
+                            (float(sched_bias(last)), float(sched(last))))
+        fit = fitness(val_metrics)
+        logger.info(
+            f"🏋️ Epoch {epoch}/{cfg.epochs} loss(box/seg/cls/dfl)="
+            f"{train_losses['box']:.3f}/{train_losses['seg']:.3f}/"
+            f"{train_losses['cls']:.3f}/{train_losses['dfl']:.3f} "
+            f"mAP50(M)={val_metrics.get('map50_m', 0):.3f} fitness={fit:.3f}"
+        )
+
+        saved_last = epoch % LAST_EVERY == 0 or epoch == cfg.epochs
+        if saved_last:
+            checkpoint.save_checkpoint(last_ckpt, state.state_dict())
+        if cfg.save_period > 0 and epoch % cfg.save_period == 0:
+            checkpoint.save_checkpoint(weights / f"epoch{epoch}.pt", state.served_state_dict())
+        if val_metrics and fit >= best_fit:
+            best_fit, best_epoch, vals_since_best = fit, epoch, 0
+            checkpoint.save_checkpoint(weights / "best.pt", state.served_state_dict())
+            checkpoint.write_fitness(weights, best_fit, best_epoch)
+        elif val_metrics:
+            vals_since_best += 1
+        epochs_run = epoch
+        if val_metrics and cfg.patience > 0 and vals_since_best >= cfg.patience:
+            # upstream EarlyStopping, counted in validations; a resumable
+            # last.pt is kept at the break
+            logger.info(f"🛑 Detención temprana en la época {epoch}: sin mejora de fitness "
+                        f"desde la época {best_epoch} (patience={cfg.patience}).")
+            if not saved_last:
+                checkpoint.save_checkpoint(last_ckpt, state.state_dict())
+            break
+
+    if best_fit < 0 and not checkpoint.checkpoint_exists(weights / "best.pt"):
+        # no validation ever ran and no earlier best exists: the final
+        # weights are the best
+        checkpoint.save_checkpoint(weights / "best.pt", state.served_state_dict())
+
+    return {
+        "best_fitness": best_fit,
+        "epochs": epochs_run,  # epochs trained (fewer than cfg.epochs when patience fired)
+        "train_slices": len(train_set),
+        "val_slices": len(val_set) if val_set else 0,
+        "weights_dir": str(weights),
+        "batch_size": cfg.batch_size,
+        "steps_per_epoch": steps_per_epoch,
+    }
+
+
+def entrenamiento_exitoso(output_dir) -> bool:
+    """The training-success check (reference ``train.py:105-116``): best
+    and last checkpoints and ``results.csv`` present."""
+    out = Path(output_dir)
+    return (checkpoint.checkpoint_exists(out / "weights" / "best.pt")
+            and checkpoint.checkpoint_exists(out / "weights" / "last.pt")
+            and (out / "results.csv").exists())

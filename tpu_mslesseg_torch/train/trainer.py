@@ -30,7 +30,7 @@ from __future__ import annotations
 import csv
 import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -38,17 +38,19 @@ import torch
 
 from tpu_mslesseg_torch.core.device import exigir
 from tpu_mslesseg_torch.model.yolo11 import init_variables
+from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
 from tpu_mslesseg_torch.train.losses import LossConfig, segmentation_loss
+
+logger = get_logger(__file__)
 
 CLIP_NORM = 10.0
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """What the train step reads. The reference's other options (mosaic
-    closing, patience, save period, plots, pretrained weights, ``amp``)
-    belong to the engine, which is not ported yet; the compute dtype is the
-    model's own (``create_model(dtype=...)``)."""
+    """The train step's and the engine's options, with the reference's
+    defaults. The compute dtype is the model's own: ``amp`` asks the stage
+    for a bf16 model (``create_model(dtype=...)``)."""
 
     epochs: int = 50
     batch_size: int = 32
@@ -63,10 +65,22 @@ class TrainConfig:
     nbs: int = 64
     ema_decay: float = 0.9999
     ema_tau: float = 2000.0
+    # the last `close_mosaic` epochs train without the mosaic
+    close_mosaic: int = 10
+    # early stop after `patience` validated epochs without a better fitness
+    patience: int = 100
+    # > 0: weights/epoch<N>.pt every N epochs
+    save_period: int = -1
     cos_lr: bool = False
     imgsz: int = 640
     seed: int = 0
     max_fg: int = 64
+    # training figures: not ported (ROADMAP A8); the engine says so once
+    plots: bool = True
+    # bf16 compute, float32 parameters, optimizer state, statistics and losses
+    amp: bool = True
+    # an ultralytics .pt to warm-start from ("" = the seeded initialisation)
+    pretrained: str = ""
 
 
 def accumulate_steps(cfg: TrainConfig) -> int:
@@ -178,7 +192,8 @@ def make_optimizer(model, cfg: TrainConfig):
 @dataclass
 class TrainState:
     """What a run carries from step to step. The gradients accumulated since
-    the last apply live in the parameters' ``.grad``."""
+    the last apply live in the parameters' ``.grad``; `gen` draws the
+    epochs' source indices and the augmentation's parameters."""
 
     model: torch.nn.Module
     ema: dict[str, torch.Tensor]  # parameters only, float32
@@ -188,22 +203,71 @@ class TrainState:
     step: int = 0  # micro-steps taken
     applies: int = 0  # optimizer steps taken
     lr: tuple[float, float] = (0.0, 0.0)  # (bias, weights) of the last apply
+    gen: torch.Generator = field(default_factory=torch.Generator)
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs to go on as the uninterrupted run
+        would: the model, the EMA, the optimizer, the counters, the
+        accumulated gradients and the generator's state (tensors, numbers
+        and strings only: ``torch.load(weights_only=True)`` reads it)."""
+        return {
+            "model": self.model.state_dict(),
+            "ema": dict(self.ema),
+            "optimizer": self.optimizer.state_dict(),
+            "grads": {n: p.grad for n, p in self.model.named_parameters() if p.grad is not None},
+            "step": self.step,
+            "applies": self.applies,
+            "lr": list(self.lr),
+            "gen": self.gen.get_state(),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        dev = self.device
+        self.model.load_state_dict(sd["model"])
+        with torch.no_grad():
+            for k, v in sd["ema"].items():
+                self.ema[k].copy_(v)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        for n, p in self.model.named_parameters():
+            g = sd["grads"].get(n)
+            p.grad = None if g is None else g.to(dev, p.dtype).clone()
+        self.step, self.applies = int(sd["step"]), int(sd["applies"])
+        self.lr = tuple(float(v) for v in sd["lr"])
+        self.gen.set_state(sd["gen"])
+
+    def served_state_dict(self) -> dict:
+        """The weights a predictor serves: the EMA parameters and the
+        BatchNorm statistics (a 3-channel stem)."""
+        return {**self.model.state_dict(), **self.ema}
+
 
 def init_train_state(model, cfg: TrainConfig, steps_per_epoch: int, variables=None,
                      device="cuda") -> TrainState:
     """`model` with `variables` (a state_dict with a 3-channel stem; seeded
-    from ``cfg.seed`` when None) on `device`, its optimizer and its EMA.
-    Raises when `device` cannot be used; nothing falls back to the CPU."""
+    from ``cfg.seed`` when None, then warm-started from ``cfg.pretrained``
+    where it names a file) on `device`, its optimizer, its EMA and a
+    generator seeded from ``cfg.seed``. Raises when `device` cannot be used;
+    nothing falls back to the CPU."""
     device = exigir(device)
-    model.load_state_dict(variables if variables is not None else init_variables(model, cfg.seed))
+    sd = variables if variables is not None else init_variables(model, cfg.seed)
+    if cfg.pretrained:
+        from tpu_mslesseg_torch.model.import_pt import load_pretrained
+
+        sd, report = load_pretrained(cfg.pretrained, sd)
+        logger.info(
+            f"🧬 Pretrained {cfg.pretrained}: {len(report['transferred'])}/"
+            f"{report['total_ours']} transferidos ({len(report['mismatched'])} sin forma "
+            "compatible)."
+        )
+    model.load_state_dict(sd)
     model.to(device)
     ema = {n: p.detach().clone() for n, p in model.named_parameters()}
-    return TrainState(model, ema, make_optimizer(model, cfg), cfg, steps_per_epoch)
+    return TrainState(model, ema, make_optimizer(model, cfg), cfg, steps_per_epoch,
+                      gen=torch.Generator().manual_seed(cfg.seed))
 
 
 def cadence_at(cfg: TrainConfig, steps_per_epoch: int, step: int) -> tuple[bool, int]:
@@ -303,7 +367,7 @@ RESULTS_HEADER = [
 
 class ResultsWriter:
     """Per-epoch ``results.csv`` in the reference's schema. One process
-    writes it; multi-process runs are not ported yet."""
+    writes it; multi-process runs are not ported yet (ROADMAP A7)."""
 
     def __init__(self, path, append: bool = False, from_epoch: int | None = None):
         self.path = Path(path)
