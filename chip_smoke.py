@@ -157,6 +157,31 @@ pipeline's log lines):
    peaks, seconds an epoch, a micro-step and a validation pass, images/s
    and the peak memory.
 
+16. train_parallel_cli: train every fold at once, then serve. Phase 15's
+   inputs and command without ``--train_secuencial`` (the CLI's default for
+   a full experiment with no fold trained): ``train_folds_parallel`` builds
+   one pool of all patients on the card, resolves ``batch -1`` by one
+   fold's probe, and advances both folds micro-step by micro-step (3
+   epochs of YOLO11n-seg at 640 in bf16), then ``rapido`` serves every
+   patient from its fold's ``best.pt``. Checks that ``stage_timer`` shows
+   ``train_paralelo`` and no ``train_fold<k>``, the stacked
+   ``_parallel/last.pt`` and every fold's files (three ``results.csv`` rows
+   of finite losses), every micro-step's cadence and finite losses, that
+   the folds took turns, that the pool and validation sets launched
+   CLAHE's kernels and the serve all four, each kernel against its plain
+   version on fold 1's served weights and a patient's slices (NMS at the
+   validation's confidence, 0.001, so the union holds kept boxes), and that the
+   same command again trains nothing. Prints the batch, micro-steps an
+   epoch, seconds a micro-step and a round of both folds, images/s, seconds
+   a validation pass, the phase's seconds and peak memory beside phase
+   15's.
+17. nccl_one_rank: ``init_process_group("nccl", world_size=1)`` through a
+   file store: one data-parallel micro-step (YOLO11n-seg, 640, bf16, batch
+   16) through the collective path, against the plain micro-step from the
+   same state on the same batch, bit for bit, under the deterministic
+   modes (the plain step twice first). Two ranks cannot run on one card:
+   the CPU tests run them over ``gloo``.
+
 An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
 with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
 phase 2's slices: all must be equal (LT floors ``c*log1p(x)``, so a
@@ -166,7 +191,8 @@ as a one-level flip).
 Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
 the CLAHE kernels' background-heavy ms, the bound and what bounds it;
 ``launches`` counts phase 6's fold, which those times belong to,
-``launches_by_path`` each driven path's, and ``cli_chain`` holds phase 9's
+``launches_by_path`` each driven path's (``train_paralelo`` phase 16's),
+and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
 patient's three launches of 50 images; the stem's ``scales`` holds phase
 11's bf16 rows; ``library_ms`` is null, as no single
@@ -1228,14 +1254,39 @@ def phase_train_f32(torch, P, dev) -> None:
         raise AssertionError(f"f32 train steps on the card and on the CPU disagree: {worst}")
 
 
-TRAIN_CLI_EPOCHS = 3  # phase 15: epochs a fold
+TRAIN_CLI_EPOCHS = 3  # phases 15 and 16: epochs a fold
 TRAIN_LOSS_COLS = (slice(2, 6), slice(14, 18))  # results.csv: train and val loss columns
 
 
-def train_cli_args(*extra) -> list:
+def train_cli_args(*extra, secuencial: bool = True) -> list:
     return ["--plano", "axial", "--modalidad", "FLAIR", "--num_cortes", str(N_PER_PLANE),
             "--mejora", "CLAHE", "--epochs", str(TRAIN_CLI_EPOCHS), "--k_folds",
-            str(CLI_K_FOLDS), "--completo", "--entrenar", "--train_secuencial", *extra]
+            str(CLI_K_FOLDS), "--completo", "--entrenar",
+            *(["--train_secuencial"] if secuencial else []), *extra]
+
+
+def write_train_tree(root: Path, P):
+    """Phases 15 and 16's inputs: 4 synthetic patients (FLAIR and mask), 2
+    folds. Returns (dataset dir, Modelo)."""
+    ds = root / "MSLesSeg-Dataset" / "train"
+    for pid in CLI_PATIENTS:
+        vol, gt = patient_volume(pid, CLI_LESION)
+        P.nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
+        P.nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
+    return ds, P.Modelo(plano="axial", num_cortes=N_PER_PLANE, modalidad=["FLAIR"],
+                        k_folds=CLI_K_FOLDS, mejora="CLAHE")
+
+
+def served_tree(modelo, folds) -> set:
+    """The serve's files after training: each patient's volume and JSON,
+    each fold's and the global JSON."""
+    exp = f"{modelo.base_path}_{TRAIN_CLI_EPOCHS}epochs"
+    want = {Path(d) / exp / f"fold{f}" / pid / f"{pid}_axial{suffix}"
+            for pid, f in CLI_PATIENTS.items()
+            for d, suffix in (("pred_vols", ".nii.gz"), ("results", "_results.json"))}
+    want |= {Path("results") / exp / f"fold{f}" / f"fold{f}_axial_results.json" for f in folds}
+    want.add(Path("results") / exp / "global_axial_results.json")
+    return want
 
 
 def timed_wrapper(torch, fn, record):
@@ -1256,13 +1307,7 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
     "--epochs", "3"])`` on a tree of 4 synthetic patients, 2 folds: each fold
     trained at full width with ``batch -1``, then every patient served from
     the fold's ``best.pt``; a second run trains nothing."""
-    ds = root / "MSLesSeg-Dataset" / "train"
-    for pid in CLI_PATIENTS:
-        vol, gt = patient_volume(pid, CLI_LESION)
-        P.nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
-        P.nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
-    modelo = P.Modelo(plano="axial", num_cortes=N_PER_PLANE, modalidad=["FLAIR"],
-                      k_folds=CLI_K_FOLDS, mejora="CLAHE")
+    ds, modelo = write_train_tree(root, P)
     rec = {"auto": [], "peaks": [], "folds": [], "steps": [], "val_s": [], "serve": []}
 
     def auto(*a, **kw):
@@ -1379,14 +1424,8 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
             raise AssertionError(f"batch -1 was not resolved by the card's probe: {rec}")
 
         # the serve: every volume/JSON pair, all four kernels launched
-        exp = f"{modelo.base_path}_{TRAIN_CLI_EPOCHS}epochs"
-        want_out = {Path(d) / exp / f"fold{f}" / pid / f"{pid}_axial{suffix}"
-                    for pid, f in CLI_PATIENTS.items()
-                    for d, suffix in (("pred_vols", ".nii.gz"), ("results", "_results.json"))}
-        want_out |= {Path("results") / exp / f"fold{f}" / f"fold{f}_axial_results.json"
-                     for f in folds}
-        want_out.add(Path("results") / exp / "global_axial_results.json")
-        check_tree(tree(root, "pred_vols", "results"), want_out, "phase 15: pred_vols/, results/")
+        check_tree(tree(root, "pred_vols", "results"), served_tree(modelo, folds),
+                   "phase 15: pred_vols/, results/")
         serve_launches = {k: sum(r[k] for r in rec["serve"]) for k in KERNELS}
         for k, n in serve_launches.items():
             if n < 1:
@@ -1408,6 +1447,12 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
     step_s = [s["s"] for s in rec["steps"]]
     later = [s["s"] for s in rec["steps"] if s["step"] > 0]
     batch = rec["folds"][0][1]["batch_size"]
+    figures = {"run_s": run_s, "fold_s": [sec for sec, _ in rec["folds"]],
+               "batch": batch, "micro_steps_per_epoch": rec["folds"][0][1]["steps_per_epoch"],
+               "s_per_micro_step_median": float(np.median(later)) if later else None,
+               "s_per_validation_pass": rec["val_s"],
+               "images_per_s": batch / float(np.median(later)) if later else None,
+               "max_memory_allocated_bytes": peak}
     emit({"phase": "train_cli", "model": "YOLO11n-seg", "trained": sorted(trained),
           "patients": len(CLI_PATIENTS), "k_folds": CLI_K_FOLDS, "epochs": TRAIN_CLI_EPOCHS,
           "summaries": [s for _, s in rec["folds"]], "launches": launches,
@@ -1427,7 +1472,284 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
               "images_per_s": batch / float(np.median(later)) if later else None,
               "max_memory_allocated_bytes": peak,
               "memory_allocated_before_the_phase_bytes": held_before, **card}})
-    return {"launches": launches}
+    return {"launches": launches, "figures": figures}
+
+
+def phase_train_parallel_cli(torch, P, root: Path, counters, dev, card, sequential) -> dict:
+    """Phase 16: ``main([... "--completo", "--entrenar", "--epochs", "3"])``
+    without ``--train_secuencial`` on phase 15's inputs: both folds trained
+    at once (``train_folds_parallel``: one shared pool on the card, both
+    folds' micro-steps in turns), then served from their ``best.pt``; each
+    kernel against its plain version on the served weights; a second run
+    trains nothing. `sequential` holds phase 15's figures, printed beside
+    this phase's."""
+    ds, modelo = write_train_tree(root, P)
+    rec = {"auto": [], "init": [], "steps": [], "val_s": [], "serve": [], "train": []}
+
+    def auto(*a, **kw):
+        b = real_auto(*a, **kw)
+        rec["auto"].append(b)
+        return b
+
+    def init(model, cfg, spe, folds, *a, **kw):
+        rec["init"].append({"batch": cfg.batch_size, "spe": spe, "folds": list(folds)})
+        states = real_init(model, cfg, spe, folds, *a, **kw)
+        owner.update({id(st): f for f, st in states.items()})
+        return states
+
+    def step_record(sec, a, out):
+        state = a[0]
+        rec["steps"].append({"fold": owner[id(state)], "step": state.step - 1, "s": sec,
+                             "applied": bool(out["applied"]), "cfg": state.cfg,
+                             "spe": state.steps_per_epoch,
+                             "finite": all(bool(torch.isfinite(out[k])) for k in
+                                           P.trainer.LOSS_PARTS),
+                             "model": (str(state.model.dtype).removeprefix("torch."),
+                                       state.model.cfg.scale, state.cfg.imgsz)})
+
+    def train(*a, **kw):
+        before = read_launches(counters)
+        out = real_train(*a, **kw)
+        torch.cuda.synchronize()
+        after = read_launches(counters)
+        rec["train"].append({k: after[k] - before[k] for k in after})
+        return out
+
+    def serve(*a, **kw):
+        before = read_launches(counters)
+        ok = real_rapido(*a, **kw)
+        torch.cuda.synchronize()
+        after = read_launches(counters)
+        rec["serve"].append({k: after[k] - before[k] for k in after})
+        return ok
+
+    def fold_by_fold(*a, **kw):
+        raise AssertionError("phase 16 trained fold by fold")
+
+    owner = {}
+    real_auto, real_init = P.autobatch.auto_batch_size, P.fold_parallel.init_multi_fold_state
+    real_rapido = P.rapido.ejecutar_fold_rapido
+    real_train = timed_wrapper(torch, P.engine_parallel.train_folds_parallel,
+                               lambda sec, a, out: rec.setdefault("train_s", []).append(sec))
+    wrappers = [
+        (P.autobatch, "auto_batch_size", auto),
+        (P.fold_parallel, "init_multi_fold_state", init),
+        (P.fold_parallel, "fold_step", timed_wrapper(torch, P.fold_parallel.fold_step,
+                                                     step_record)),
+        (P.engine_parallel, "train_folds_parallel", train),
+        (P.validate, "run_validation", timed_wrapper(
+            torch, P.validate.run_validation, lambda sec, a, out: rec["val_s"].append(sec))),
+        (P.rapido, "ejecutar_fold_rapido", serve),
+        (P.engine, "train_fold", fold_by_fold),
+    ]
+    cache = root / "autobatch.json"  # empty: the probe runs on the card
+    cwd = os.getcwd()
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in wrappers:
+            stack.enter_context(switched(module, name, fn))
+        old_cache = os.environ.get("TPU_MSLESSEG_AUTOBATCH_CACHE")
+        os.environ["TPU_MSLESSEG_AUTOBATCH_CACHE"] = str(cache)
+        stack.callback(lambda: os.environ.pop("TPU_MSLESSEG_AUTOBATCH_CACHE") if old_cache is None
+                       else os.environ.update(TPU_MSLESSEG_AUTOBATCH_CACHE=old_cache))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        P.profiling.reset_timings()
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        os.chdir(root)
+        try:
+            P.orch.main(train_cli_args(secuencial=False))
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches(counters)
+        peak = torch.cuda.max_memory_allocated()
+        stages = P.profiling.timings_summary()
+        P.logging_setup.configure_logging(log_file=None)
+
+        if "train_paralelo" not in stages or [k for k in stages if k.startswith("train_fold")]:
+            raise AssertionError(f"stage 2 did not run as train_paralelo alone: {sorted(stages)}")
+        folds = sorted(set(CLI_PATIENTS.values()))
+        if len(rec["init"]) != 1 or rec["init"][0]["folds"] != [f - 1 for f in folds]:
+            raise AssertionError(f"the folds' states: {rec['init']}")
+        spe, batch = rec["init"][0]["spe"], rec["init"][0]["batch"]
+        out_dir = P.ConfigTrain(modelo=modelo, epochs=TRAIN_CLI_EPOCHS, fold_test=1,
+                                root=root).output_dir
+        if not (out_dir / "_parallel" / "last.pt").is_file():
+            raise AssertionError("no stacked resume point _parallel/last.pt")
+        for k in folds:
+            fold = out_dir / f"fold{k}"
+            have = {str(p.relative_to(fold)) for p in fold.rglob("*") if p.is_file()}
+            want = {"args.yaml", f"{modelo.model_string}.yaml", "results.csv", "weights/best.pt",
+                    "weights/last.pt", "weights/fitness.json"}
+            if have != want:
+                raise AssertionError(f"fold {k}: files {sorted(have)}, want {sorted(want)}")
+            with open(fold / "results.csv") as f:
+                rows = list(csv.reader(f))[1:]
+            if [r[0] for r in rows] != [str(e) for e in range(1, TRAIN_CLI_EPOCHS + 1)]:
+                raise AssertionError(f"fold {k}: results.csv epochs {[r[0] for r in rows]}")
+            for r in rows:
+                losses = [float(v) for c in TRAIN_LOSS_COLS for v in r[c]]
+                if not all(np.isfinite(losses)) or not all(v > 0 for v in losses[:4]):
+                    raise AssertionError(f"fold {k}: losses {losses} in results.csv")
+            steps = [s for s in rec["steps"] if s["fold"] == k - 1]
+            mask, _, _ = P.trainer.apply_cadence(steps[0]["cfg"], steps[0]["spe"])
+            if [s["applied"] for s in steps] != mask[: len(steps)].tolist() or \
+                    [s["step"] for s in steps] != list(range(len(steps))):
+                raise AssertionError(f"fold {k}: the optimizer fired off the cadence")
+            if len(steps) != TRAIN_CLI_EPOCHS * spe or not all(s["finite"] for s in steps):
+                raise AssertionError(f"fold {k}: {len(steps)} micro-steps, or a loss not finite")
+        # the folds take turns at every micro-step
+        if [s["fold"] for s in rec["steps"][:2 * spe]] != [0, 1] * spe:
+            raise AssertionError("the folds did not take turns micro-step by micro-step")
+        trained = {s["model"] for s in rec["steps"]}
+        if trained != {("bfloat16", "n", IMGSZ)}:
+            raise AssertionError(f"trained {trained}, not YOLO11n-seg in bf16 at {IMGSZ}")
+        if len(rec["auto"]) != 1:
+            raise AssertionError("batch -1 was not resolved once by the card's probe")
+        for k in ("clahe_tile_lut", "clahe_blend"):
+            if rec["train"][0][k] < 1:
+                raise AssertionError(f"the shared pool and validation sets did not launch {k}")
+
+        check_tree(tree(root, "pred_vols", "results"), served_tree(modelo, folds),
+                   "phase 16: pred_vols/, results/")
+        serve_launches = {k: sum(r[k] for r in rec["serve"]) for k in KERNELS}
+        for k, n in serve_launches.items():
+            if n < 1:
+                raise AssertionError(f"the serve after training did not launch the {k} kernel")
+
+        # each kernel against its plain version on fold 1's served weights
+        pid = next(p for p, f in CLI_PATIENTS.items() if f == 1)
+        pac = P.Paciente(id=pid, plano="axial", modalidad=["FLAIR"], mejora="CLAHE",
+                         dataset_dir=ds)
+        raw = torch.from_numpy(pac.cortes_imagen_batch(pac.indices_a_usar(N_PER_PLANE),
+                                                       "FLAIR")).to(dev)
+        smodel, _, imgsz = P.create_model_from_env()
+        best = P.ConfigTrain(modelo=modelo, epochs=TRAIN_CLI_EPOCHS, fold_test=1,
+                             root=root).best_ckpt
+        # at the validation's confidence, 0.001: three epochs from seeded
+        # weights keep no detection at the serve's 0.25, and the union kernel
+        # is held on kept boxes
+        pred = P.SlicePredictor(smodel, P.load_checkpoint(best), tuple(raw.shape[1:]),
+                                imgsz=imgsz, conf=0.001, device=dev)
+        if pred._stem_w is None:
+            raise AssertionError("the best.pt of the fold-parallel run did not build the stem")
+        checks = chain_kernel_checks(torch, P, pred, raw)
+        if not checks["mask_union"]["errs"]["kept_per_image"] > 0:
+            raise AssertionError("no detection kept to hold the union kernel on")
+
+        stamps = {p: p.stat().st_mtime_ns for p in (root / "trains").rglob("*") if p.is_file()}
+        os.chdir(root)
+        try:
+            P.orch.main(train_cli_args(secuencial=False))
+        finally:
+            os.chdir(cwd)
+            P.logging_setup.configure_logging(log_file=None)
+        if len(rec["init"]) != 1 or {p: p.stat().st_mtime_ns for p in (root / "trains").rglob("*")
+                                     if p.is_file()} != stamps:
+            raise AssertionError("a second run trained again")
+
+    later = [s["s"] for s in rec["steps"] if s["step"] > 0]
+    rounds = [a["s"] + b["s"] for a, b in zip(rec["steps"][2::2], rec["steps"][3::2])]
+    figures = {"run_s": run_s, "train_paralelo_s": rec["train_s"][0], "batch": batch,
+               "micro_steps_per_epoch": spe,
+               "s_per_micro_step_median": float(np.median(later)),
+               "s_per_micro_step_of_all_folds_median": float(np.median(rounds)),
+               "s_per_validation_pass": rec["val_s"],
+               "images_per_s": len(folds) * batch / float(np.median(rounds)),
+               "max_memory_allocated_bytes": peak}
+    emit({"phase": "train_parallel_cli", "model": "YOLO11n-seg", "trained": sorted(trained),
+          "patients": len(CLI_PATIENTS), "k_folds": CLI_K_FOLDS, "epochs": TRAIN_CLI_EPOCHS,
+          "stages": sorted(stages), "launches": launches, "train_launches": rec["train"][0],
+          "serve_launches": serve_launches, "second_run_trained_nothing": True,
+          "kernels_vs_plain": {k: v["errs"] for k, v in checks.items()},
+          "batch_probe": rec["auto"], "micro_steps": len(rec["steps"]),
+          "optimizer_fired_at": {k: [s["step"] for s in rec["steps"]
+                                     if s["applied"] and s["fold"] == k - 1] for k in folds},
+          "informational": {"fold_parallel": figures, "sequential_phase_15": sequential,
+                            "memory_allocated_before_the_phase_bytes": held_before, **card}})
+    return {"launches": launches, "checks": checks}
+
+
+def phase_nccl_one_rank(torch, P, dev, card) -> None:
+    """Phase 17: one rank of ``nccl`` (a file store in a temporary
+    directory): one data-parallel micro-step at YOLO11n-seg, 640, bf16,
+    batch 16, through the collective path (``DataAxis`` over the one rank,
+    the sequential engine's semantics: BatchNorm statistics, loss
+    normalisers and gradients all-reduced), against the plain micro-step
+    from the same state on the same batch, bit for bit (the optimizer fires
+    at this first micro-step). cuDNN and torch in their deterministic modes
+    for the phase; the plain step is run twice first to show it repeats."""
+    import torch.distributed as dist
+
+    T = P.trainer
+    cfg = T.TrainConfig(batch_size=16, imgsz=IMGSZ, max_fg=64, seed=3)
+    model, _ = P.create_model(nc=1, scale="n", dtype=torch.bfloat16)
+    sd = P.init_variables(model, cfg.seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in P.synthetic_batch(300, cfg.batch_size, IMGSZ, 64).items()}
+
+    def step(axis):
+        m, _ = P.create_model(nc=1, scale="n", dtype=torch.bfloat16)
+        state = T.init_train_state(m, cfg, 4, variables=sd, device=dev)
+        out = T.train_step(state, batch, axis)
+        torch.cuda.synchronize()
+        return out, state
+
+    def same(a, b) -> list:
+        (ma, sa), (mb, sb) = a, b
+        diff = [k for k in ("loss",) + T.LOSS_PARTS if not torch.equal(ma[k], mb[k])]
+        if ma["applied"] != mb["applied"]:
+            diff.append("applied")
+        da, db = sa.state_dict(), sb.state_dict()
+        for part in ("model", "ema"):
+            diff += [f"{part}:{k}" for k in da[part] if not torch.equal(da[part][k], db[part][k])]
+        for i, st in da["optimizer"]["state"].items():
+            diff += [f"opt:{i}:{k}" for k, v in st.items()
+                     if not torch.equal(v, db["optimizer"]["state"][i][k])]
+        return diff
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = step(None)
+        again = step(None)
+        repeats = same(plain, again)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                                    rank=0)
+            try:
+                if dist.get_backend() != "nccl" or P.distributed.process_count() != 1:
+                    raise AssertionError("not one rank of nccl")
+                axis = P.mesh.DataAxis(dist.group.WORLD, (0,), 0, True)
+                collective = step(axis)
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+    if repeats:
+        raise AssertionError(f"the plain step does not repeat bit for bit: {repeats[:10]}")
+    differs = same(plain, collective)
+    if differs:
+        raise AssertionError(f"the one-rank collective step differs from the plain one: "
+                             f"{differs[:10]} ({len(differs)} in all)")
+    if not plain[0]["applied"] or not all(bool(torch.isfinite(plain[0][k]))
+                                          for k in T.LOSS_PARTS):
+        raise AssertionError("the compared step did not apply, or a loss part is not finite")
+    emit({"phase": "nccl_one_rank", "backend": "nccl", "world_size": 1,
+          "model": "YOLO11n-seg", "imgsz": IMGSZ, "dtype": "bfloat16",
+          "batch_size": cfg.batch_size, "optimizer_fired": True,
+          "plain_repeats_bit_for_bit": True, "collective_equals_plain_bit_for_bit": True,
+          "loss": {k: float(plain[0][k]) for k in ("loss",) + T.LOSS_PARTS},
+          "note": "two ranks cannot be run on one card: the two-rank steps are the CPU "
+                  "tests' (tests/test_torch_port_distributed.py, gloo)", **card})
 
 
 def main() -> int:
@@ -1465,7 +1787,10 @@ def main() -> int:
     from tpu_mslesseg_torch.pipeline.stages import generar_predicciones as gen_stage
     from tpu_mslesseg_torch.preproc import clahe, enhance
     from tpu_mslesseg_torch.tools.train_batches import synthetic_batch as train_batch
-    from tpu_mslesseg_torch.train import autobatch, engine, trainer, validate
+    from tpu_mslesseg_torch.core import distributed, mesh
+    from tpu_mslesseg_torch.train import (
+        autobatch, engine, engine_parallel, fold_parallel, trainer, validate,
+    )
     from tpu_mslesseg_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
     # the port's modules the CLI phases use
@@ -1480,7 +1805,8 @@ def main() -> int:
         mu=mu, stem=stem, clahe=clahe, detect_and_union=detect_and_union,
         ConsensusPredictor=ConsensusPredictor, fold_gray_stem=fold_gray_stem,
         trainer=trainer, synthetic_batch=train_batch, autobatch=autobatch, engine=engine,
-        validate=validate, rapido=rapido,
+        validate=validate, rapido=rapido, engine_parallel=engine_parallel,
+        fold_parallel=fold_parallel, distributed=distributed, mesh=mesh,
     )
 
     dev = torch.device(DEVICE)
@@ -2048,11 +2374,25 @@ def main() -> int:
     # ---- phase 15: train a fold through the CLI, then serve it -------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_cli = phase_train_cli(torch, P, Path(tmp), counters, dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 16: train every fold at once through the CLI, then serve ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        train_par = phase_train_parallel_cli(torch, P, Path(tmp), counters, dev, card,
+                                             train_cli["figures"])
+    for name in KERNELS:
+        max_err[name] = max(max_err[name], train_par["checks"][name]["errs"]["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    # ---- phase 17: one rank of nccl, the collective step against the plain --
+    phase_nccl_one_rank(torch, P, dev, card)
+    torch.cuda.empty_cache()
 
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
                "cli_chain": chain["launches"], "cli_default": default["launches"],
                "lote_scale_s": scale_s_launches, "train": train_launches,
-               "train_cli_then_serve": train_cli["launches"]}
+               "train_cli_then_serve": train_cli["launches"],
+               "train_paralelo": train_par["launches"]}
 
     for name in KERNELS:
         max_err[name] = max(max_err[name], chain["kernels"][name]["max_abs_err"])

@@ -413,3 +413,42 @@ def test_train_state_defaults_to_the_card(cuda):
     model, _ = create_model(nc=1, scale="n")
     state = trainer.init_train_state(model, trainer.TrainConfig(imgsz=64, batch_size=2), 4)
     assert state.device.type == "cuda"
+
+
+def test_a_fold_parallel_micro_step_on_the_card_matches_the_cpu(cuda):
+    """Two folds' first micro-steps (``fold_parallel.fold_step``) from their
+    seeded states on a shared pool on the card and on the CPU: the same
+    draws (the fold's generator lives on the host), f32 loss parts within
+    rtol 1e-3, as the single step above."""
+    import numpy as np
+
+    from tpu_mslesseg_torch.train import augment, fold_parallel, trainer
+
+    rng = np.random.default_rng(4)
+    m, h, w = 12, 48, 40
+    data = {"images": rng.integers(0, 255, (m, h, w)).astype(np.uint8),
+            "instmaps": np.zeros((m, h, w), np.uint8), "boxes": np.zeros((m, 4, 4), np.float32),
+            "valid": np.zeros((m, 4), bool)}
+    for i in range(m):
+        data["instmaps"][i, 8:30, 6:28] = 1
+        data["images"][i, 8:30, 6:28] = 230
+        data["boxes"][i, 0] = (6, 8, 28, 30)
+        data["valid"][i, 0] = True
+    meta = [(("P1", "P30")[i % 2], "FLAIR", i) for i in range(m)]
+    from tpu_mslesseg_torch.pipeline.paciente import calcular_fold
+
+    pools, counts = fold_parallel.build_fold_index_pools(meta, 2, calcular_fold)
+    cfg = trainer.TrainConfig(batch_size=2, imgsz=64, max_fg=8, warmup_bias_lr=0.0)
+    acfg = augment.AugConfig(imgsz=64, max_inst=4)
+    rows = {}
+    for where in (cuda, torch.device("cpu")):
+        model, _ = create_model(nc=1, scale="n")
+        states = fold_parallel.init_multi_fold_state(model, cfg, 2, [0, 1], device=where)
+        dd = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
+        rows[where.type] = [fold_parallel.fold_step(st, pools[f], counts[f], dd, acfg)
+                            for f, st in states.items()]
+        assert all(st.step == 1 and st.device.type == where.type for st in states.values())
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        for k in ("loss", "box", "seg", "cls", "dfl"):
+            assert np.isfinite(float(want[k])) and float(want[k]) > 0
+            assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-3)

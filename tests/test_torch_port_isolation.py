@@ -47,7 +47,8 @@ TRAIN_MODULES = ("train.assigner", "train.losses", "train.trainer", "train.check
                  "tools.train_batches", "model.blocks", "model.bridge", "model.yolo11",
                  "train.data", "train.augment", "train.validate", "train.engine",
                  "train.autobatch", "evalx.seg_map", "io.torch_pt", "model.import_pt",
-                 "pipeline.yaml_out", "pipeline.stages.train")
+                 "pipeline.yaml_out", "pipeline.stages.train", "train.fold_parallel",
+                 "train.engine_parallel", "core.distributed", "core.mesh")
 
 
 def test_the_training_modules_load_no_other_framework():
@@ -79,12 +80,17 @@ def test_the_training_modules_load_no_other_framework():
 def test_the_training_entry_points_default_to_the_card():
     import inspect
 
+    from tpu_mslesseg_torch.core import distributed
     from tpu_mslesseg_torch.pipeline.stages import train as stage
-    from tpu_mslesseg_torch.train import autobatch, data, engine, trainer, validate
+    from tpu_mslesseg_torch.train import (
+        autobatch, data, engine, engine_parallel, fold_parallel, trainer, validate,
+    )
 
     for fn in (engine.train_fold, stage.ejecutar_flujo_train, stage.ejecutar_train_pipeline,
                autobatch.auto_batch_size, validate.run_validation, data.build_dataset,
-               trainer.init_train_state):
+               trainer.init_train_state, stage.ejecutar_train_paralelo,
+               engine_parallel.train_folds_parallel, fold_parallel.init_fold_state,
+               fold_parallel.init_multi_fold_state, distributed.maybe_initialize):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 

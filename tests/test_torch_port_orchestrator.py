@@ -14,8 +14,8 @@ and ``best.pt`` checkpoints for 3 planes x 2 folds.
   (the JAX three-plane run is in that package's slow set), and against the
   port's own ``rapido`` patient mode;
 * stage 2: a trained fold skips, an untrained fold warns without
-  ``--entrenar``; with it, the default of training all folds at once stops
-  the run (ROADMAP A7); ``main`` exits 1 without a CUDA
+  ``--entrenar``; with it, the CLI trains all folds at once and serves
+  them; ``main`` exits 1 without a CUDA
   device; the flag vocabulary and the ``--rapido`` default equal the JAX
   package's.
 
@@ -232,30 +232,50 @@ def test_an_untrained_fold_without_entrenar_warns_and_goes_on(untrained, caplog)
     assert not list((untrained / "results").rglob("*.json"))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one thread for a test that runs whole stages: the suite runs
+    several test processes at once, and each torch process's own thread
+    pool would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_entrenar_on_an_untrained_fold_stops_and_names_the_roadmap(untrained, monkeypatch):
-    """Full mode with no fold trained defaults to training all folds at once,
-    which is not ported: the run stops and names ROADMAP A7 (the fold-by-fold
-    ``--train_secuencial`` path is ``test_torch_port_train_stage``'s)."""
-    with Env(cwd=untrained):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            torch_orch.ejecutar_pipeline(modelo(TModelo, "axial", CASE), epochs=EPOCHS,
-                                         entrenar=True, device="cpu")
-        # through the CLI: logged, exit code 1 (the run here is on the CPU)
-        monkeypatch.setattr(torch_orch, "ejecutar_pipeline",
-                            functools.partial(torch_orch.ejecutar_pipeline, device="cpu"))
-        argv = ["--plano", "axial", "--modalidad", "FLAIR", "--num_cortes", str(NUM_CORTES),
-                "--mejora", "CLAHE", "--epochs", str(EPOCHS), "--k_folds", str(K_FOLDS),
-                "--completo", "--entrenar"]
-        try:
-            with pytest.raises(SystemExit) as exc:
-                torch_orch.main(argv)
-            assert exc.value.code == 1
-            log = (untrained / "pipeline.log").read_text()
-            assert "Error en el pipeline" in log and "ROADMAP A7" in log
-        finally:
-            tlog.configure_logging(log_file=None)
-    assert not (untrained / "pred_vols").exists()
-    assert not (untrained / "trains").exists()
+    """Full mode with no fold trained trains all folds at once (ROADMAP A7,
+    ported) and serves each from its ``best.pt``: the CLI's ``--completo
+    --entrenar`` exits 0 with every fold's files (the fold-by-fold path is
+    ``test_torch_port_train_stage``'s)."""
+    from tpu_mslesseg_torch.train.trainer import TrainConfig
+
+    monkeypatch.setattr(torch_orch, "ejecutar_pipeline", functools.partial(
+        torch_orch.ejecutar_pipeline, device="cpu",
+        train_cfg=TrainConfig(epochs=EPOCHS, batch_size=4, imgsz=64, amp=False)))
+    argv = ["--plano", "axial", "--modalidad", "FLAIR", "--num_cortes", str(NUM_CORTES),
+            "--mejora", "CLAHE", "--epochs", str(EPOCHS), "--k_folds", str(K_FOLDS),
+            "--completo", "--entrenar"]
+    tprof.reset_timings()
+    try:
+        with Env(cwd=untrained):
+            assert torch_orch.main(argv) is None  # no SystemExit: the run ended well
+        log = (untrained / "pipeline.log").read_text()
+    finally:
+        tlog.configure_logging(log_file=None)
+    assert "Error en el pipeline" not in log and "Pipeline completado" in log
+    timed = tprof.timings_summary()
+    assert "train_paralelo" in timed and not [k for k in timed if k.startswith("train_fold")]
+    trains = untrained / _base("trains")
+    for k in range(1, K_FOLDS + 1):
+        fold = trains / "axial" / f"fold{k}"
+        assert {p.name for p in (fold / "weights").iterdir()} == {"best.pt", "last.pt",
+                                                                  "fitness.json"}
+        assert (fold / "results.csv").is_file() and (fold / "args.yaml").is_file()
+    served = sorted(p.relative_to(untrained / _base("pred_vols")).as_posix()
+                    for p in (untrained / "pred_vols").rglob("*.nii.gz"))
+    assert served == ["fold1/P1/P1_axial.nii.gz", "fold2/P30/P30_axial.nii.gz"]
 
 
 def test_a_trained_fold_skips_stage_two_even_with_entrenar(inputs, tmp_path, caplog):

@@ -16,7 +16,11 @@ wrapping the entry point the CLI calls (``ejecutar_flujo_train``, or
 * ``ejecutar_pipeline.main([... "--completo", "--entrenar",
   "--train_secuencial"])`` trains both folds, then serves every patient
   from the ``best.pt`` it wrote (``rapido``, imgsz 96); a second run trains
-  nothing; the fold-parallel default raises and names ROADMAP A7.
+  nothing;
+* without ``--train_secuencial`` the same command trains both folds at once
+  (``ejecutar_train_paralelo`` with the orchestrator's device, never fold
+  by fold), and the stage's ``--paralelo`` skips a trained experiment and
+  starts again with ``--limpiar``.
 """
 
 import csv
@@ -170,22 +174,88 @@ def test_entrenar_trains_each_fold_then_serves_from_best_pt(tmp_path):
                 if p.is_file()} == stamps
 
 
+@pytest.fixture
+def tmp_path_removed_after(tmp_path):
+    """`tmp_path`, removed after the test: its tree holds checkpoints."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one thread for a test that runs whole stages: the suite runs
+    several test processes at once, and each torch process's own thread
+    pool would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread", "tmp_path_removed_after")
 def test_the_fold_parallel_default_raises_and_names_a7(tmp_path):
+    """A full experiment with no fold trained trains every fold at once, the
+    reference's default (ROADMAP A7, ported): through
+    ``ejecutar_train_paralelo`` with the orchestrator's device, never fold
+    by fold; the stage's ``--paralelo`` reaches the same function."""
     root = tmp_path / "exp"
     write_dataset(root, pids=("P1", "P30"))
-    with Env(cwd=root):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7") as exc:
-            torch_orch.ejecutar_pipeline(TModelo(**MODELO), epochs=1, entrenar=True,
-                                         device="cpu")
-    assert "--train_secuencial" in str(exc.value)
-    assert not (root / "trains").exists()  # never quietly the fold-by-fold loop
+    real = train_stage.ejecutar_train_paralelo
+    calls = []
+
+    def fold_by_fold(*a, **kw):
+        raise AssertionError("trained fold by fold")
+
+    with pytest.MonkeyPatch.context() as mp, Env(cwd=root):
+        mp.setattr(train_stage, "ejecutar_flujo_train", fold_by_fold)
+        mp.setattr(train_stage, "ejecutar_train_paralelo",
+                   lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+        torch_orch.ejecutar_pipeline(TModelo(**MODELO), epochs=1, entrenar=True, device="cpu",
+                                     train_cfg=ORCH_CFG)
+    assert len(calls) == 1 and calls[0]["device"] == torch.device("cpu")
+    out = root / "trains" / "CLAHE" / "FLAIR_6c_2folds_1epochs" / "axial"
+    for k in (1, 2):
+        assert _files(out / f"fold{k}") == FOLD_FILES
+        assert tengine.entrenamiento_exitoso(out / f"fold{k}")
+    assert _files(out / "_parallel") == {"last.pt"}
+
     with pytest.MonkeyPatch.context() as mp:
-        with pytest.raises(SystemExit) as exit_:
-            _main(mp, root, ORCH_ARGS)
-    assert exit_.value.code == 1
-    assert "ROADMAP A7" in (root / "pipeline.log").read_text()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_stage.main(["--plano", "axial", "--num_cortes", "6", "--paralelo"])
+        stage_calls = []
+        mp.setattr(train_stage, "ejecutar_train_paralelo",
+                   lambda *a, **kw: stage_calls.append((a, kw)))
+        mp.setattr(train_stage, "ejecutar_flujo_train", fold_by_fold)
+        train_stage.main(["--plano", "axial", "--num_cortes", "6", "--paralelo", "--k_folds",
+                          "2", "--limpiar", "--imgsz", "64", "--no_amp"])
+    ((modelo_, epochs), kw), = stage_calls
+    assert (modelo_.k_folds, epochs, kw["limpiar"], kw["train_cfg"].imgsz) == (2, 50, True, 64)
+    assert "device" not in kw  # the stage's CLI runs on the card, its default
+
+
+@pytest.mark.usefixtures("one_torch_thread", "tmp_path_removed_after")
+def test_paralelo_skips_a_trained_experiment_and_cleans_with_limpiar(tmp_path):
+    """``ejecutar_train_paralelo`` (the reference's ``:204-268``): every
+    fold trained skips; ``limpiar`` removes every fold and the stacked
+    resume point, then trains again from epoch 1."""
+    root = tmp_path / "exp"
+    write_dataset(root, pids=("P1", "P30"))
+    m = TModelo(**MODELO)
+    run = functools.partial(train_stage.ejecutar_train_paralelo, m, 1, train_cfg=ORCH_CFG,
+                            device="cpu")
+    with Env(cwd=root):
+        from tpu_mslesseg_torch.pipeline.stages import extraer_dataset
+
+        extraer_dataset.ejecutar_dataset_pipeline(m, k_folds=2, device="cpu")
+        summary = run()
+        assert set(summary) == {"fold1", "fold2"}
+        out = ConfigTrain(modelo=m, epochs=1, fold_test=1, root=root).output_dir
+        stamps = {p: p.stat().st_mtime_ns for p in out.rglob("*") if p.is_file()}
+        assert run() is None  # every fold trained: a skip
+        assert {p: p.stat().st_mtime_ns for p in out.rglob("*") if p.is_file()} == stamps
+        (out / "_parallel" / "stale").write_text("x")
+        assert set(run(limpiar=True)) == {"fold1", "fold2"}
+        assert not (out / "_parallel" / "stale").exists()
+        with open(out / "fold1" / "results.csv") as f:
+            assert [r[0] for r in list(csv.reader(f))[1:]] == ["1"]
 
 
 def test_flags_equal_jax():

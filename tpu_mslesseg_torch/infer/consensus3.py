@@ -12,13 +12,21 @@ device:
       -> per-plane inverse-letterbox sampling -> volume scatter
       -> majority vote -> confusion counts
 
-Not ported (TPU-only or later): the serving TPU flags and the ``mesh=``
-SPMD path.
+With ``devices=[...]`` (the counterpart of the reference's ``mesh=``),
+`lote` gives a model replica on each card a contiguous chunk of every
+patient's slice axis, padded to a multiple of the card count with slices
+whose index is out of range (their writes are dropped, as the reference's
+are), and gathers the masks on the first card, which scatters them into the
+volumes and counts: the results are one card's. Not ported (TPU-only): the
+serving TPU flags.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+
+import contextlib
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +42,20 @@ from tpu_mslesseg_torch.model import stem
 from tpu_mslesseg_torch.preproc import enhance
 
 PLANES = geometry.PLANES
+
+
+class _Replica(NamedTuple):
+    """The served weights on one device."""
+
+    device: torch.device
+    variables: dict  # state_dict, or {plane: state_dict}
+    stem_w: object  # stem.maybe_build's weights, or None
+
+
+def _on(device: torch.device):
+    """The context that makes `device` current (a kernel wrapper launches on
+    the current card)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _per_plane(variables) -> bool:
@@ -55,7 +77,8 @@ class ConsensusPredictor:
     volume-space slices [N_p, h_p, w_p] (or {modalidad: [N_p, h_p, w_p]});
     enhancement and the PNG min-max stretch happen on the device.
     `mask_union` computes the proto-mask union; the default launches the
-    CUDA kernel for CUDA tensors.
+    CUDA kernel for CUDA tensors. With `devices`, `lote` splits each
+    patient's slice axis over those devices (the first is `device`).
     """
 
     def __init__(
@@ -74,6 +97,7 @@ class ConsensusPredictor:
         per_plane_counts: bool = False,
         device="cuda",
         mask_union=mask_union_logits_batch,
+        devices=None,
     ):
         self.model = model
         self.planes = tuple(planes)
@@ -82,14 +106,8 @@ class ConsensusPredictor:
             raise ValueError(
                 "sin los tres planos no hay consenso: use per_plane_counts=True"
             )
-        self.device = torch.device(device)
-        if _per_plane(variables):
-            self.variables = {
-                p: prepare_variables(model, v, self.device)
-                for p, v in variables.items()
-            }
-        else:
-            self.variables = prepare_variables(model, variables, self.device)
+        self.devices = [torch.device(d) for d in devices] if devices else None
+        self.device = self.devices[0] if self.devices else torch.device(device)
         self.vol_shape = tuple(vol_shape)
         self.mejora = mejora
         self.imgsz = imgsz
@@ -104,17 +122,30 @@ class ConsensusPredictor:
             h, w = geometry.slice_shape(self.vol_shape, p)
             # PNG-space (model) dims are transposed volume-slice dims
             self.lb[p] = dec.Letterbox(src_h=w, src_w=h, size=imgsz)
-        # opt-in fused stem (TPU_MSLESSEG_PALLAS_STEM=1, CUDA only), one set
-        # of stem weights per plane with per-plane variables
-        self._stem_w = stem.maybe_build(self.variables, self.device, imgsz)
+        self._replicas = [self._replica(model, variables, d)
+                          for d in (self.devices or [self.device])]
+        self.variables, self._stem_w = self._replicas[0].variables, self._replicas[0].stem_w
+
+    def _replica(self, model, variables, device) -> _Replica:
+        """`variables` prepared on `device`, with the opt-in fused stem's
+        weights (TPU_MSLESSEG_PALLAS_STEM=1, CUDA only), one set per plane
+        with per-plane variables."""
+        if _per_plane(variables):
+            v = {p: prepare_variables(model, vp, device) for p, vp in variables.items()}
+        else:
+            v = prepare_variables(model, variables, device)
+        with _on(device):
+            return _Replica(device, v, stem.maybe_build(v, device, self.imgsz))
 
     def _as_device(self, x, dtype=None):
         return torch.as_tensor(x).to(device=self.device, dtype=dtype)
 
-    def _union_logits(self, slices):
+    def _union_logits(self, slices, rep: _Replica | None = None):
         """Enhance + letterbox each plane's slice batch, run the forward +
-        NMS + proto-mask union. Returns (union [sum(n_mod*N), mh, mw]
-        logits, segments: list of (plane, n_mod, N))."""
+        NMS + proto-mask union with `rep`'s weights (the first device's by
+        default). Returns (union [sum(n_mod*N), mh, mw] logits, segments:
+        list of (plane, n_mod, N))."""
+        rep = rep or self._replicas[0]
         segs = []
         xs_by_plane = []
         for p in self.planes:
@@ -135,20 +166,20 @@ class ConsensusPredictor:
             self.model, v, x, self.imgsz, self.conf, self.iou, self.max_det,
             self.mask_union, sw,
         )
-        sw = self._stem_w
-        if _per_plane(self.variables):
+        sw = rep.stem_w
+        if _per_plane(rep.variables):
             union = torch.cat(
-                [run(self.variables[p], x, None if sw is None else sw[p])
+                [run(rep.variables[p], x, None if sw is None else sw[p])
                  for (p, _, _), x in zip(segs, xs_by_plane)], 0,
             )
         else:
-            union = run(self.variables, torch.cat(xs_by_plane, 0), sw)
+            union = run(rep.variables, torch.cat(xs_by_plane, 0), sw)
         return union, segs
 
     def _plane_logits(self, union_p, plane):
         """Union logits [M, mh, mw] -> volume-space sampled logits [M, h, w]
         on the exact inverse-letterbox grid."""
-        ys, xs = proto_grid(self.lb[plane], self.device)
+        ys, xs = proto_grid(self.lb[plane], union_p.device)
         return geometry.from_png_space_batch(_bilinear_sample(union_p, ys, xs))
 
     def _plane_masks(self, union, segs, n_pat):
@@ -186,10 +217,11 @@ class ConsensusPredictor:
                 if tuple(arr.shape[lead:]) != (h, w):
                     raise ValueError(f"{p}: slices {tuple(arr.shape)}, want (..., {h}, {w})")
 
-    def _slices_to_device(self, slices, flat):
-        """Slices on the device; with `flat`, [P, N, h, w] -> [P*N, h, w]."""
+    def _slices_to_device(self, slices, flat, device=None):
+        """Slices on `device` (the first); with `flat`, [P, N, h, w] ->
+        [P*N, h, w]."""
         def conv(v):
-            v = self._as_device(v)
+            v = torch.as_tensor(v).to(device or self.device)
             return v.reshape((-1,) + tuple(v.shape[-2:])) if flat else v
 
         return {
@@ -225,8 +257,12 @@ class ConsensusPredictor:
         self._check_shapes(slices, 2)
         gts = self._as_device(gts)
         n_pat = gts.shape[0]
-        union, segs = self._union_logits(self._slices_to_device(slices, True))
-        masks = self._plane_masks(union, segs, n_pat)
+        if self.devices is None:
+            union, segs = self._union_logits(self._slices_to_device(slices, True))
+            masks = self._plane_masks(union, segs, n_pat)
+        else:
+            slices, idx = self._pad_slice_axis(slices, idx)
+            masks = self._sharded_masks(slices, n_pat)
         vols = {}
         for p in self.planes:
             ix = self._as_device(idx[p])
@@ -235,6 +271,46 @@ class ConsensusPredictor:
                 for i in range(n_pat)
             ])
         return self._finish(vols, gts)
+
+    def _pad_slice_axis(self, slices, idx):
+        """Each plane's slice axis padded to a multiple of the device count:
+        zero slices at the index ``max(vol_shape)``, whose writes drop."""
+        n_dev = len(self.devices)
+        out_s, out_i = {}, {}
+        for p in self.planes:
+            ix = torch.as_tensor(idx[p])
+            pad = -ix.shape[1] % n_dev
+            out_i[p] = torch.cat([ix, ix.new_full((ix.shape[0], pad), max(self.vol_shape))], 1)
+
+            def padded(v, pad=pad):
+                v = torch.as_tensor(v)
+                return torch.cat([v, v.new_zeros((v.shape[0], pad) + tuple(v.shape[2:]))], 1)
+
+            sl = slices[p]
+            out_s[p] = {m: padded(v) for m, v in sl.items()} if isinstance(sl, Mapping) \
+                else padded(sl)
+        return out_s, out_i
+
+    def _sharded_masks(self, slices, n_pat):
+        """Replica i serves chunk i of every patient's (padded) slice axis;
+        the chunks' masks [n_pat, N/n_dev, h, w] are gathered on the first
+        device and joined along the slice axis."""
+        n_dev = len(self.devices)
+
+        def chunk(v, i):
+            c = v.shape[1] // n_dev
+            return v[:, i * c:(i + 1) * c]
+
+        parts = []
+        for i, rep in enumerate(self._replicas):
+            sl = {p: ({m: chunk(v, i) for m, v in slices[p].items()}
+                      if isinstance(slices[p], Mapping) else chunk(slices[p], i))
+                  for p in self.planes}
+            with _on(rep.device):
+                union, segs = self._union_logits(
+                    self._slices_to_device(sl, True, rep.device), rep)
+                parts.append(self._plane_masks(union, segs, n_pat))
+        return {p: torch.cat([m[p].to(self.device) for m in parts], 1) for p in self.planes}
 
     @staticmethod
     def metrics_from_counts(counts) -> dict:

@@ -20,15 +20,37 @@ variance takes that *biased* value (torch's takes the unbiased one). A
 block is built in eval mode, and so is the model (``nn.Module`` builds in
 train mode): serving code never has to ask for it, and only the trainer
 switches to train mode.
+
+Under `batch_norm_axis` (a data-parallel step over one batch split across
+ranks, ``core.mesh.DataAxis`` with ``global_batch``) the batch statistics
+are the whole batch's: each rank's per-channel means of ``x`` and ``x^2``
+are averaged over the axis, with a gradient, as the JAX package's BatchNorm
+reduces over a batch that XLA shards.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+_BN_AXIS = contextvars.ContextVar("batch_norm_axis", default=None)
+
+
+@contextlib.contextmanager
+def batch_norm_axis(axis):
+    """Train-mode BatchNorm inside the block normalises with the statistics
+    of the batch split over `axis` (a ``core.mesh.DataAxis``; None: this
+    rank's own batch)."""
+    token = _BN_AXIS.set(axis)
+    try:
+        yield
+    finally:
+        _BN_AXIS.reset(token)
 
 
 class Conv(nn.Module):
@@ -59,8 +81,12 @@ class Conv(nn.Module):
         """Batch norm of float32 `y` with its batch statistics; moves the
         running statistics by ``bn.momentum`` towards them (in place)."""
         bn = self.bn
-        mean = y.mean(dim=(0, 2, 3))
-        var = ((y * y).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mean, sq = y.mean(dim=(0, 2, 3)), (y * y).mean(dim=(0, 2, 3))
+        axis = _BN_AXIS.get()
+        if axis is not None:
+            # every rank's batch is the same size: the mean of the means
+            mean, sq = (axis.all_reduce_grad(torch.stack([mean, sq])) / axis.size).unbind(0)
+        var = (sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             keep = 1.0 - bn.momentum
             bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)

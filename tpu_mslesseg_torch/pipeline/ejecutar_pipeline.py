@@ -10,10 +10,12 @@ incremental-resume behavior (every stage skips existing artifacts).
 
 Everything that computes runs on the CUDA device; there is no fallback to
 the CPU (``device="cpu"`` exists for callers that ask for it, as the tests
-do). Stage 2 trains fold by fold (``--entrenar --train_secuencial``);
-training all folds at once, the reference's default for a full experiment
-with no fold trained, is not ported (ROADMAP A7) and stops the run with a
-message that says to pass ``--train_secuencial``.
+do). Stage 2 of a full experiment with no fold trained trains every fold at
+once (``stages/train.ejecutar_train_paralelo``), as the reference does by
+default; patient mode, ``--train_secuencial`` and a partly trained
+experiment train fold by fold. Under ``torchrun --nproc_per_node N`` (or the
+JAX package's ``TPU_MSLESSEG_*`` variables) each rank drives one card and
+training spreads over them (``core/distributed.py``).
 
 Run:  python -m tpu_mslesseg_torch.pipeline.ejecutar_pipeline --completo \
           --plano axial --modalidad FLAIR --num_cortes P50 --epochs 50
@@ -25,6 +27,7 @@ import argparse
 import sys
 from pathlib import Path
 
+from tpu_mslesseg_torch.core import distributed
 from tpu_mslesseg_torch.core.device import exigir
 from tpu_mslesseg_torch.pipeline.logging_setup import configure_logging, get_logger
 from tpu_mslesseg_torch.pipeline.modelo import Modelo
@@ -124,10 +127,9 @@ def ejecutar_pipeline(
     )
 
     # Stage 2: training (optional; skipped per fold when weights exist).
-    # A full experiment with no fold trained defaults, in the reference, to
-    # training all folds at once; that engine is not ported, and it must not
-    # quietly become the fold-by-fold loop. Patient mode, --train_secuencial
-    # and a partly trained experiment train fold by fold.
+    # A full experiment with no fold trained trains all folds at once;
+    # patient mode, --train_secuencial and a partly trained experiment train
+    # fold by fold (the per-fold skip is finer-grained).
     untrained = folds_sin_entrenar(modelo, epochs, folds)
     if (
         entrenar and paciente is None and train_paralelo
@@ -135,7 +137,7 @@ def ejecutar_pipeline(
     ):
         with stage_timer("train_paralelo"):
             train_stage.ejecutar_train_paralelo(modelo, epochs, train_cfg=train_cfg,
-                                                limpiar=limpiar)
+                                                limpiar=limpiar, device=device)
     else:
         for k in folds:
             if existe_modelo_entrenado(modelo, epochs, k):
@@ -275,7 +277,7 @@ def parsear_args(argv=None):
     parser.add_argument(
         "--train_secuencial", action="store_true",
         help="Entrenar los folds uno a uno (por defecto, en modo completo sin ningún "
-             "fold entrenado: todos a la vez, no portado: ROADMAP A7).",
+             "fold entrenado: todos a la vez).",
     )
     parser.add_argument("--limpiar", action="store_true")
     parser.add_argument(
@@ -315,6 +317,7 @@ def main(argv=None):
         plano=args.plano, num_cortes=args.num_cortes, modalidad=args.modalidad,
         k_folds=args.k_folds, mejora=args.mejora,
     )
+    distributed.maybe_initialize()
     configure_logging(log_file="pipeline.log")
     paciente = None
     if args.paciente_id:

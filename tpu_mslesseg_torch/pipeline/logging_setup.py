@@ -14,10 +14,11 @@ The demo's log swap comes with the demo.
 from __future__ import annotations
 
 import logging
-import os
 import re
 import sys
 from pathlib import Path
+
+from tpu_mslesseg_torch.core.distributed import env_rank
 
 SKIP_LEVEL = 23
 HEADER_LEVEL = 35
@@ -64,8 +65,9 @@ class NoColorFormatter(logging.Formatter):
 
 def configure_logging(level=logging.INFO, log_file="pipeline.log"):
     """Install console + file handlers on the root logger (idempotent). The
-    log file belongs to process 0 of a multi-process run, named by
-    ``TPU_MSLESSEG_PROC_ID`` (absent = main)."""
+    log file belongs to rank 0 of a multi-process run, named by
+    ``TPU_MSLESSEG_PROC_ID`` or torchrun's ``RANK`` (absent = main), read
+    before any initialisation."""
     root = logging.getLogger()
     root.setLevel(level)
     root.handlers.clear()
@@ -74,7 +76,7 @@ def configure_logging(level=logging.INFO, log_file="pipeline.log"):
     ch.setFormatter(ColorFormatter("%(message)s"))
     root.addHandler(ch)
 
-    if log_file is not None and os.environ.get("TPU_MSLESSEG_PROC_ID", "0") in ("", "0"):
+    if log_file is not None and env_rank() == 0:
         fh = logging.FileHandler(log_file, mode="w", encoding="utf-8")
         fh.setFormatter(NoColorFormatter("%(message)s"))
         root.addHandler(fh)

@@ -26,8 +26,10 @@ Weights are each plane's fold checkpoint ``weights/best.pt`` (a state_dict,
 ``train/checkpoint.py``). Slice indices come from the stage-1 extracted
 images, so the served slices are exactly the stage chain's. The device is
 the caller's, CUDA by default: without a card the predictor fails rather
-than serve on the CPU unasked. The JAX package's SPMD serving over several
-devices is not ported (multi-GPU comes later).
+than serve on the CPU unasked. A single process that sees several cards
+splits each patient's slice axis over all of them
+(`_dispositivos_para_servicio`, ``ConsensusPredictor(devices=...)``); under
+several ranks each rank serves unsplit, as the reference does.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from tpu_mslesseg_torch.core import distributed
 from tpu_mslesseg_torch.evalx import metrics as mx
 from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
 from tpu_mslesseg_torch.io import nifti
@@ -262,6 +266,18 @@ def _lote_arrays(grupo, planes, vol_shape):
     return slices, idx, gts
 
 
+def _dispositivos_para_servicio(device) -> list | None:
+    """The cards `lote` splits the slice axis over, or None (unsplit). Only
+    a single process on a CUDA `device` that sees more than one card splits:
+    under several ranks every rank serves its own patients on its own card
+    (the reference's ``_mesh_para_servicio``: a mesh there would span
+    devices the process cannot address)."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or distributed.process_count() > 1 or torch.cuda.device_count() < 2:
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def ejecutar_fold_rapido(
     modelo, epochs: int = 50, k_folds: int = 5, fold_test: int = 1,
     umbral: int = 2, limpiar: bool = False, lote_size: int = LOTE_PACIENTES,
@@ -325,11 +341,14 @@ def ejecutar_fold_rapido(
         grupos.setdefault((p["planes"], p["gt"].shape), []).append(p)
 
     model, _, imgsz = create_model_from_env()
+    devices = _dispositivos_para_servicio(device)
+    if devices is not None:
+        logger.info(f"🕸️ Vía rápida sobre {len(devices)} GPUs: cortes de cada paciente repartidos.")
     for (planes, vol_shape), grupo in grupos.items():
         cp = ConsensusPredictor(
             model, grupo[0]["variables"], vol_shape, mejora=modelo.mejora,
             imgsz=imgsz, umbral=umbral, planes=planes, per_plane_counts=True,
-            device=device,
+            device=device, devices=devices,
         )
         pendientes = []  # (patients, device results): depth-1 pipeline
         for i in range(0, len(grupo), lote_size):

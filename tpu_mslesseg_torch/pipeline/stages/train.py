@@ -4,13 +4,18 @@ Port of ``tpu_mslesseg/pipeline/stages/train.py``. Reference:
 ``scripts/train.py``. The same CLI and artifacts (``weights/best.pt`` and
 ``last.pt``, ``results.csv``, ``args.yaml``, the dataset YAML, a skip when
 the fold is trained); the fold's subsets are built on the device instead of
-copied to disk, and the loop is ``train/engine.py``. Everything runs on the
+copied to disk, and the loop is ``train/engine.py``; ``--paralelo`` trains
+every fold at once (``train/engine_parallel.py``). Everything runs on the
 CUDA card; ``device="cpu"`` is for callers that ask for it, as the tests
-do. Training all folds at once over several cards (``--paralelo``) is not
-ported (ROADMAP A7).
+do. Under ``torchrun`` (or the JAX package's ``TPU_MSLESSEG_*`` variables)
+each rank drives one card: one fold's batch is split over all ranks, and
+``--paralelo`` lays the ranks out as a (fold, data) grid
+(``core/mesh.py``).
 
 Run:  python -m tpu_mslesseg_torch.pipeline.stages.train --plano axial \
           --modalidad FLAIR --num_cortes P50 --fold_test 1 --epochs 50
+      python -m tpu_mslesseg_torch.pipeline.stages.train --plano axial \
+          --modalidad FLAIR --num_cortes P50 --paralelo --epochs 50
 """
 
 from __future__ import annotations
@@ -21,16 +26,21 @@ from pathlib import Path
 
 import torch
 
+from tpu_mslesseg_torch.core import distributed, mesh
 from tpu_mslesseg_torch.core.device import exigir
 from tpu_mslesseg_torch.model.yolo11 import create_model
 from tpu_mslesseg_torch.pipeline import yaml_out
 from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
 from tpu_mslesseg_torch.pipeline.modelo import Modelo
 from tpu_mslesseg_torch.pipeline.paciente import listar_pacientes
-from tpu_mslesseg_torch.pipeline.paths import ConfigTrain, existe_modelo_entrenado
+from tpu_mslesseg_torch.pipeline.paths import (
+    ConfigTrain,
+    eliminar_directorio,
+    existe_modelo_entrenado,
+)
 from tpu_mslesseg_torch.preproc.slices import int_o_percentil, resolver_num_cortes
 from tpu_mslesseg_torch.train import data as tdata
-from tpu_mslesseg_torch.train import engine
+from tpu_mslesseg_torch.train import engine, engine_parallel, fold_parallel
 from tpu_mslesseg_torch.train.trainer import TrainConfig
 
 logger = get_logger(__file__)
@@ -44,7 +54,10 @@ def _compute_dtype(cfg: TrainConfig):
 def _escribir_dataset_yaml(fold_dir, modelo, dataset_dir, patients, fold, k_folds):
     """The fold's dataset YAML, ``<model_string>.yaml`` in the fold dir (the
     reference archives its generated data YAML there): its keys
-    (path/train/val/names/nc), with the fold split as train and val."""
+    (path/train/val/names/nc), with the fold split as train and val. Rank 0
+    writes it."""
+    if not distributed.is_main_process():
+        return
     train_ids, test_ids = tdata.fold_patient_split(patients, fold, k_folds)
     yaml_out.write(Path(fold_dir) / f"{modelo.model_string}.yaml", {
         "path": str(Path(dataset_dir).resolve()),
@@ -72,6 +85,13 @@ def ejecutar_flujo_train(config: ConfigTrain, limpiar=False, verbose=False,
 
     dev = exigir(device)
     config.verificar_paths()
+    # several ranks split the fold's batch (the reference's data mesh over
+    # every device); one process uses one card
+    axis = None
+    if distributed.process_count() > 1:
+        axis = mesh.make_grid(fold_parallel=1).data_axis(global_batch=True)
+        logger.info(f"🕸️ Data-parallel: {distributed.process_count()} rangos.")
+    distributed.advertir_una_gpu(dev)
     num_cortes, _ = resolver_num_cortes(
         num_cortes=config.modelo.num_cortes, input_dir=config.dataset_entrada,
         plano=config.modelo.plano, modalidad=config.modelo.modalidad,
@@ -88,7 +108,7 @@ def ejecutar_flujo_train(config: ConfigTrain, limpiar=False, verbose=False,
         plano=config.modelo.plano, modalidades=config.modelo.modalidad,
         mejora=config.modelo.mejora, num_cortes=num_cortes,
         dataset_dir=config.dataset_entrada, output_dir=config.fold_dir, cfg=cfg,
-        k_folds=config.modelo.k_folds, device=dev,
+        k_folds=config.modelo.k_folds, device=dev, axis=axis,
     )
     logger.info(f"✅ Entrenamiento del fold {config.fold_test} completado: {summary}")
     return True
@@ -109,7 +129,8 @@ def parsear_args(argv=None):
     group.add_argument("--fold_test", type=int)
     group.add_argument(
         "--paralelo", action="store_true",
-        help="Entrenar todos los folds a la vez (no portado: ROADMAP A7).",
+        help="Entrenar todos los folds a la vez (train/engine_parallel.py; con varios "
+             "rangos, una rejilla (fold, data)).",
     )
     parser.add_argument(
         "--batch", type=int, default=-1,
@@ -153,16 +174,55 @@ def resolver_pretrained(pretrained: str = "auto") -> str:
     return pretrained
 
 
-def ejecutar_train_paralelo(modelo, epochs, train_cfg=None, scale="n", limpiar=False):
-    """All folds at once over several cards: not ported."""
-    raise NotImplementedError(
-        "Entrenar todos los folds a la vez (--paralelo) no está portado a PyTorch "
-        "(ROADMAP A7): entrena fold a fold (--fold_test k, o --train_secuencial en el "
-        "orquestador).")
+def ejecutar_train_paralelo(modelo, epochs, train_cfg=None, scale="n", limpiar=False,
+                            device="cuda"):
+    """Every fold at once on `device`: skipped when every fold is trained,
+    redone from scratch with `limpiar`. Over several ranks the folds lay out
+    on a (fold, data) grid (``fold_parallel.plan_fold_mesh``)."""
+    config = ConfigTrain(modelo=modelo, epochs=epochs, fold_test=1)
+    config.verificar_paths()
+    fold_dirs = [config.output_dir / f"fold{k}" for k in range(1, modelo.k_folds + 1)]
+    if limpiar:
+        # the stacked resume point goes too: a cleaned run starts at epoch 1
+        if distributed.is_main_process():
+            for d in fold_dirs + [config.output_dir / engine_parallel.STACKED.parent]:
+                eliminar_directorio(d)
+        distributed.barrier()
+    elif all(engine.entrenamiento_exitoso(d) for d in fold_dirs):
+        logger.skip("⏩ Todos los folds ya entrenados.")
+        return None
+
+    dev = exigir(device)
+    world = distributed.process_count()
+    fold_par, k_pad = fold_parallel.plan_fold_mesh(world, modelo.k_folds)
+    grid = mesh.make_grid(fold_parallel=fold_par) if world > 1 else None
+    logger.info(
+        f"🕸️ Rejilla fold-parallel: fold={fold_par} x data={world // fold_par} "
+        f"({modelo.k_folds} folds -> {k_pad} con relleno)."
+        if grid is not None else "🕸️ Un dispositivo: los folds se turnan en cada paso.")
+    distributed.advertir_una_gpu(dev)
+    num_cortes, _ = resolver_num_cortes(
+        num_cortes=modelo.num_cortes, input_dir=config.dataset_entrada,
+        plano=modelo.plano, modalidad=modelo.modalidad,
+    )
+    cfg = train_cfg or TrainConfig(epochs=epochs, batch_size=-1,
+                                   pretrained=resolver_pretrained())
+    model, _ = create_model(nc=1, scale=scale, dtype=_compute_dtype(cfg))
+    pacientes = listar_pacientes(config.dataset_entrada)
+    for k in range(1, modelo.k_folds + 1):
+        _escribir_dataset_yaml(config.output_dir / f"fold{k}", modelo, config.dataset_entrada,
+                               pacientes, k, modelo.k_folds)
+    return engine_parallel.train_folds_parallel(
+        model=model, patients=pacientes, plano=modelo.plano, modalidades=modelo.modalidad,
+        mejora=modelo.mejora, num_cortes=num_cortes, dataset_dir=config.dataset_entrada,
+        output_root=config.output_dir, cfg=cfg, k_folds=modelo.k_folds, grid=grid,
+        device=dev,
+    )
 
 
 def main(argv=None):
     args = parsear_args(argv)
+    distributed.maybe_initialize()
     modelo = Modelo(
         plano=args.plano, num_cortes=args.num_cortes, modalidad=args.modalidad,
         k_folds=args.k_folds, mejora=args.mejora,

@@ -52,6 +52,10 @@ class AugParams(NamedTuple):
     def to(self, device) -> "AugParams":
         return AugParams(*(t.to(device) for t in self))
 
+    def rows(self, part) -> "AugParams":
+        """The draws of the samples `part` (a slice) selects."""
+        return AugParams(*(t[part] for t in self))
+
 
 def draw_params(gen: torch.Generator, cfg: AugConfig, batch: int) -> AugParams:
     """The seven draws of each of `batch` samples, in the reference's ranges:

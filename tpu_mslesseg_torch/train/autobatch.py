@@ -11,8 +11,11 @@ budget, ``DEFAULT_FRACTION`` of what ``torch.cuda.mem_get_info`` reports
 free, and the answer is kept in a cache file keyed on the card, the model
 and the dataset, so later folds and runs skip the probe.
 
-On the CPU (asked for by name) the batch is ``DEFAULT_BATCH``, as the
-reference's is on a CPU backend. On a CUDA card there is no fallback: a
+Over a data axis of ``n_data`` ranks, each with its own card, the answer is
+the batch one card holds times ``n_data`` (each rank takes its share of
+it), as the reference scales its per-device batch. On the CPU (asked for by
+name) the batch is ``DEFAULT_BATCH`` a rank, as the reference's is on a CPU
+backend. On a CUDA card there is no fallback: a
 probe that fails, or a line on which no batch fits, raises.
 """
 
@@ -105,21 +108,23 @@ def probe_peak(model, cfg, train_set, acfg, batch_size: int, device) -> int:
         torch.cuda.empty_cache()
 
 
-def auto_batch_size(model, cfg, train_set, acfg, fraction: float = DEFAULT_FRACTION,
-                    max_batch: int = 128, device="cuda") -> int:
-    """Resolve ``batch=-1`` for `model` training on `train_set` on `device`."""
+def auto_batch_size(model, cfg, train_set, acfg, n_data: int = 1,
+                    fraction: float = DEFAULT_FRACTION, max_batch: int = 128,
+                    device="cuda") -> int:
+    """Resolve ``batch=-1`` for `model` training on `train_set` on `device`,
+    for a batch split over `n_data` such devices."""
     dev = torch.device(device)
     if dev.type == "cpu":
-        logger.info(f"🤖 batch=-1 en la CPU: batch={DEFAULT_BATCH}.")
-        return DEFAULT_BATCH
+        logger.info(f"🤖 batch=-1 en la CPU: batch={DEFAULT_BATCH} x {n_data}.")
+        return DEFAULT_BATCH * n_data
     free, total = torch.cuda.mem_get_info(dev)
     key = "|".join(str(v) for v in (
         torch.cuda.get_device_name(dev), total, model.cfg.scale, cfg.imgsz, acfg.max_inst,
         cfg.max_fg, cfg.amp, fraction, max_batch, train_set.nbytes()))
     cached = _cache_load().get(key)
     if cached is not None:
-        logger.info(f"🤖 batch=-1 (cacheado): {cached}.")
-        return int(cached)
+        logger.info(f"🤖 batch=-1 (cacheado): {cached} por GPU x {n_data}.")
+        return int(cached) * n_data
 
     peaks = [probe_peak(model, cfg, train_set, acfg, b, dev) for b in PROBES]
     # the peaks are above what is already allocated, so the budget is a
@@ -132,6 +137,6 @@ def auto_batch_size(model, cfg, train_set, acfg, fraction: float = DEFAULT_FRACT
             f"(picos {peaks} @ {PROBES}); reduzca imgsz/escala o fije --batch.")
     per_image = (peaks[1] - peaks[0]) / (PROBES[1] - PROBES[0])
     logger.info(f"🤖 batch=-1: {free / 2**30:.1f} GiB libres x {fraction:.0%} -> batch {b} "
-                f"({per_image / 2**20:.0f} MiB/imagen).")
+                f"por GPU ({per_image / 2**20:.0f} MiB/imagen) x {n_data}.")
     _cache_store(key, b)
-    return b
+    return b * n_data

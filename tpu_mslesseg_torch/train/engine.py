@@ -12,7 +12,12 @@ from ``last.pt``, validation every ``val_every`` epochs and at the last,
 ``last.pt`` every 10 epochs and at the end, ``best.pt`` when the fitness is
 at least the best so far, patience counted in validations.
 
-Not ported: several devices (ROADMAP A7) and the training figures
+Over several ranks (``axis``, a ``core.mesh.DataAxis`` with
+``global_batch``, the counterpart of the reference's ``mesh=``) each rank
+trains on its share of every batch and validates its share of every
+validation batch, the step being one step over the whole batch; rank 0
+writes every file (the port's checkpoints are single-process writes, the
+reference's Orbax saves collective ones). Not ported: the training figures
 (``train/plots.py``, ROADMAP A8): with ``plots`` on, the engine says once
 that it writes none.
 """
@@ -25,7 +30,9 @@ from pathlib import Path
 
 import torch
 
+from tpu_mslesseg_torch.core import distributed
 from tpu_mslesseg_torch.core.device import exigir, kernels_de
+from tpu_mslesseg_torch.core.mesh import pad_to_multiple
 from tpu_mslesseg_torch.model.yolo11 import create_model
 from tpu_mslesseg_torch.pipeline import yaml_out
 from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
@@ -40,9 +47,18 @@ LAST_EVERY = 10  # epochs between last.pt saves (and the final epoch)
 
 
 def _write_args_yaml(path, cfg: TrainConfig, **extra) -> None:
+    """The run's options beside its weights (rank 0 writes it)."""
+    if not distributed.is_main_process():
+        return
     payload = {**dataclasses.asdict(cfg), **extra}
     payload = {k: (list(v) if isinstance(v, (tuple, set)) else v) for k, v in payload.items()}
     yaml_out.write(path, payload, sort_keys=True)
+
+
+def _save(path, state_dict) -> None:
+    """A checkpoint every rank holds, written by rank 0."""
+    if distributed.is_main_process():
+        checkpoint.save_checkpoint(path, state_dict)
 
 
 def train_fold(
@@ -60,13 +76,17 @@ def train_fold(
     val_every: int = 1,
     resume: bool = True,
     device="cuda",
+    axis=None,
 ) -> dict:
     """Train one fold of `patients` on `device` (raises when it cannot be
-    used). Returns a summary dict."""
+    used), data-parallel over `axis` when one is given. Returns a summary
+    dict."""
     dev = exigir(device, kernels_de(mejora))
     out = Path(output_dir)
     weights = out / "weights"
-    weights.mkdir(parents=True, exist_ok=True)
+    if distributed.is_main_process():
+        weights.mkdir(parents=True, exist_ok=True)
+    n_data = axis.size if axis is not None else 1
 
     train_ids, test_ids = tdata.fold_patient_split(patients, fold_test, k_folds)
     logger.info(f"🧠 Fold {fold_test}: train={len(train_ids)} test={len(test_ids)} pacientes")
@@ -90,16 +110,23 @@ def train_fold(
     # batch=-1 (the reference's default): the largest batch the card holds
     if cfg.batch_size == -1:
         cfg = dataclasses.replace(cfg, batch_size=autobatch.auto_batch_size(
-            model, cfg, train_set, acfg[True], device=dev))
+            model, cfg, train_set, acfg[True], n_data=n_data, device=dev))
     # never larger than the dataset: a power of two around n/2, so a tiny
     # dataset still gives several steps an epoch
     if cfg.batch_size > len(train_set):
         eff = max(1 << max((len(train_set) // 2).bit_length() - 1, 2), 4)
         logger.info(f"📉 Batch ajustado a {eff} (dataset de {len(train_set)} cortes).")
         cfg = dataclasses.replace(cfg, batch_size=eff)
+    # over a data axis the batch is a multiple of its size
+    bs = max(pad_to_multiple(cfg.batch_size, n_data), n_data)
+    if bs != cfg.batch_size:
+        logger.info(f"📐 Batch {cfg.batch_size} -> {bs} (eje data={n_data}).")
+        cfg = dataclasses.replace(cfg, batch_size=bs)
 
     steps_per_epoch = max(len(train_set) // cfg.batch_size, 1)
     state = trainer.init_train_state(model, cfg, steps_per_epoch, device=dev)
+    if axis is not None:
+        axis.broadcast_module(state.model)
     start_epoch = 1
     last_ckpt = weights / "last.pt"
     if resume and checkpoint.checkpoint_exists(last_ckpt):
@@ -128,15 +155,21 @@ def train_fold(
     # demotes an earlier, better best.pt; validations since the last
     # improvement are rebuilt from its epoch and the validation cadence
     best_fit, best_epoch = checkpoint.load_stopper_state(weights, start_epoch)
+    # fitness.json is rank 0's: every rank takes its view, so no rank's
+    # best-save or stop can part from the others'
+    best_fit, be = distributed.broadcast_from_main([best_fit, float(best_epoch)])
+    best_epoch = int(be)
     vals_since_best = max(0, (start_epoch - 1 - best_epoch) // max(val_every, 1))
     epochs_run = start_epoch - 1
     for epoch in range(start_epoch, cfg.epochs + 1):
         use_mosaic = epoch <= cfg.epochs - cfg.close_mosaic
         idx = tdata.epoch_indices(state.gen, len(train_set), cfg.batch_size, use_mosaic)
         parts = []
+        part = axis.local_slice(cfg.batch_size) if axis is not None else slice(None)
         for i in range(idx.shape[0]):
-            params = augment.draw_params(state.gen, acfg[use_mosaic], cfg.batch_size)
-            m = trainer.train_step(state, augment.make_batch(params, dd, idx[i], acfg[use_mosaic]))
+            params = augment.draw_params(state.gen, acfg[use_mosaic], cfg.batch_size).rows(part)
+            m = trainer.train_step(
+                state, augment.make_batch(params, dd, idx[i][part], acfg[use_mosaic]), axis)
             parts.append(torch.stack([m[k] for k in validate.LOSS_PARTS]))
         # the epoch's mean train losses: one fetch from the device an epoch
         train_losses = dict(zip(validate.LOSS_PARTS, torch.stack(parts).mean(0).tolist()))
@@ -144,7 +177,8 @@ def train_fold(
         if val_set is not None and (epoch % val_every == 0 or epoch == cfg.epochs):
             val_metrics, val_losses = validate.run_validation(
                 val_model, state.served_state_dict(), val_set, loss_cfg,
-                batch_size=min(cfg.batch_size, 16), imgsz=cfg.imgsz, device=dev)
+                batch_size=pad_to_multiple(min(cfg.batch_size, 16), n_data), imgsz=cfg.imgsz,
+                device=dev, axis=axis)
         else:
             val_metrics, val_losses = {}, {}
 
@@ -162,13 +196,14 @@ def train_fold(
 
         saved_last = epoch % LAST_EVERY == 0 or epoch == cfg.epochs
         if saved_last:
-            checkpoint.save_checkpoint(last_ckpt, state.state_dict())
+            _save(last_ckpt, state.state_dict())
         if cfg.save_period > 0 and epoch % cfg.save_period == 0:
-            checkpoint.save_checkpoint(weights / f"epoch{epoch}.pt", state.served_state_dict())
+            _save(weights / f"epoch{epoch}.pt", state.served_state_dict())
         if val_metrics and fit >= best_fit:
             best_fit, best_epoch, vals_since_best = fit, epoch, 0
-            checkpoint.save_checkpoint(weights / "best.pt", state.served_state_dict())
-            checkpoint.write_fitness(weights, best_fit, best_epoch)
+            _save(weights / "best.pt", state.served_state_dict())
+            if distributed.is_main_process():
+                checkpoint.write_fitness(weights, best_fit, best_epoch)
         elif val_metrics:
             vals_since_best += 1
         epochs_run = epoch
@@ -178,13 +213,13 @@ def train_fold(
             logger.info(f"🛑 Detención temprana en la época {epoch}: sin mejora de fitness "
                         f"desde la época {best_epoch} (patience={cfg.patience}).")
             if not saved_last:
-                checkpoint.save_checkpoint(last_ckpt, state.state_dict())
+                _save(last_ckpt, state.state_dict())
             break
 
     if best_fit < 0 and not checkpoint.checkpoint_exists(weights / "best.pt"):
         # no validation ever ran and no earlier best exists: the final
         # weights are the best
-        checkpoint.save_checkpoint(weights / "best.pt", state.served_state_dict())
+        _save(weights / "best.pt", state.served_state_dict())
 
     return {
         "best_fitness": best_fit,

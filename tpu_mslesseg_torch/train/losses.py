@@ -18,6 +18,13 @@ mask is ``instmap == assigned_gt + 1``.
 
 All loss math runs in float32 whatever the model's compute dtype. The
 reference's one-hot bin selection in the DFL is a gather here.
+
+With a data axis over one batch split across ranks (``axis``, a
+``core.mesh.DataAxis``), the normalisers are the whole batch's (the target
+scores' sum and the foreground count, summed over the axis) and so is the
+batch size the total is scaled by: each rank's total is its share of the
+whole batch's loss, whose gradients the ranks then sum, and the returned
+parts are summed over the axis into the whole batch's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ from torch.utils.checkpoint import checkpoint
 
 from tpu_mslesseg_torch.infer import decode as dec
 from tpu_mslesseg_torch.train import assigner
+
+
+LOSS_PARTS = ("box", "seg", "cls", "dfl")  # the gain-scaled parts a loss returns
 
 
 class LossConfig(NamedTuple):
@@ -101,6 +111,7 @@ def segmentation_loss(
     gt_valid,  # [B, M] bool
     gt_instmap,  # [B, mh, mw] uint8 instance-id map (0 = background)
     cfg: LossConfig = LossConfig(),
+    axis=None,  # a core.mesh.DataAxis the batch is split over, or None
 ):
     """Returns (total, parts). The parts are gain-scaled and carry no
     gradient history of their own use; the total is their sum times the
@@ -124,7 +135,11 @@ def segmentation_loss(
     fg = tgt["fg_mask"]
     t_scores = tgt["target_scores"]
     t_boxes_px = tgt["target_bboxes"]
-    t_sum = t_scores.sum().clamp(min=1.0)
+    t_sum, fg_count = t_scores.sum(), fg.sum()
+    if axis is not None:
+        t_sum, fg_count = (axis.all_reduce(torch.stack([t_sum, fg_count.to(t_sum.dtype)]))
+                           .unbind(0))
+    t_sum = t_sum.clamp(min=1.0)
 
     # class BCE over all anchors
     loss_cls = bce_logits(cls_l, t_scores).sum() / t_sum
@@ -171,7 +186,7 @@ def segmentation_loss(
             proto_f32, gt_instmap, scale, use_reentrant=False,
         )
         for i in range(n_chunks)
-    ) / fg.sum().clamp(min=1.0)
+    ) / fg_count.clamp(min=1.0)
 
     parts = {
         "box": cfg.box_gain * loss_box,
@@ -179,5 +194,9 @@ def segmentation_loss(
         "cls": cfg.cls_gain * loss_cls,
         "dfl": cfg.dfl_gain * loss_dfl,
     }
-    total = (parts["box"] + parts["seg"] + parts["cls"] + parts["dfl"]) * B
-    return total, {**{n: v.detach() for n, v in parts.items()}, "fg_count": fg.sum()}
+    total = (parts["box"] + parts["seg"] + parts["cls"] + parts["dfl"]) * (
+        B * (axis.size if axis is not None else 1))
+    out = {n: v.detach() for n, v in parts.items()}
+    if axis is not None:
+        out = dict(zip(out, axis.all_reduce(torch.stack(list(out.values()))).unbind(0)))
+    return total, {**out, "fg_count": fg_count}

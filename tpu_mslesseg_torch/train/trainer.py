@@ -20,8 +20,11 @@ Port of ``tpu_mslesseg/train/trainer.py``:
 
 The reference's step is one compiled program and its epoch a device-side
 scan; here `train_step` is eager PyTorch and an epoch is a Python loop over
-it. ``torch.optim.AdamW`` multiplies the parameter by ``1 - lr * wd`` and
-then subtracts ``lr * update``, where the reference adds ``wd * p`` to the
+it. With a data axis (``core.mesh.DataAxis``) the step is one rank's part
+of a data-parallel step, in either of the reference's two semantics (the
+module docstring of ``core/mesh.py`` says which is which).
+``torch.optim.AdamW`` multiplies the parameter by ``1 - lr * wd`` and then
+subtracts ``lr * update``, where the reference adds ``wd * p`` to the
 update before the learning rate: the same value but for float32 rounding.
 """
 
@@ -36,10 +39,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpu_mslesseg_torch.core import distributed
 from tpu_mslesseg_torch.core.device import exigir
+from tpu_mslesseg_torch.model.blocks import batch_norm_axis
 from tpu_mslesseg_torch.model.yolo11 import init_variables
 from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
-from tpu_mslesseg_torch.train.losses import LossConfig, segmentation_loss
+from tpu_mslesseg_torch.train.losses import LOSS_PARTS, LossConfig, segmentation_loss
 
 logger = get_logger(__file__)
 
@@ -332,26 +337,76 @@ def optimizer_step(state: TrainState) -> bool:
     return do_apply
 
 
-def train_step(state: TrainState, batch) -> dict:
+def train_step(state: TrainState, batch, axis=None) -> dict:
     """One micro-step on `batch` (the augmentation's: ``images`` [B,S,S,3]
     float32 in [0,1], ``instmap_proto`` [B,S/4,S/4] uint8, ``boxes`` [B,M,4]
     xyxy pixels, ``valid`` [B,M] bool; tensors or arrays), on the state's
     device: forward in train mode, loss, backward into the accumulated
     gradients and `optimizer_step`. Returns the loss and its gain-scaled
     parts as 0-d tensors on the device (no host sync) and whether the
-    optimizer fired."""
+    optimizer fired.
+
+    With `axis` (a ``core.mesh.DataAxis``) `batch` is this rank's part and
+    the micro-step's gradients are reduced over the axis before they join
+    the accumulated ones: summed for one batch over the axis (whose
+    BatchNorm statistics and loss normalisers are then the whole batch's),
+    averaged otherwise, with the BatchNorm running statistics and the
+    returned losses averaged too. Every rank of the axis ends the step with
+    the same state."""
     cfg, dev = state.cfg, state.device
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    whole = axis if axis is not None and axis.global_batch else None
     state.model.train()
-    out = state.model(batch["images"])
+    with batch_norm_axis(whole):
+        out = state.model(batch["images"])
     labels = torch.zeros(batch["valid"].shape, dtype=torch.long, device=dev)
     total, parts = segmentation_loss(
         out, batch["boxes"], labels, batch["valid"], batch["instmap_proto"],
-        LossConfig(imgsz=cfg.imgsz, max_fg=cfg.max_fg),
+        LossConfig(imgsz=cfg.imgsz, max_fg=cfg.max_fg), axis=whole,
     )
+    if axis is None:
+        total.backward()
+        metrics = {"loss": total.detach(), **{k: parts[k] for k in LOSS_PARTS}}
+    else:
+        _backward_over(state.model, total, axis)
+        metrics = torch.stack([total.detach()] + [parts[k] for k in LOSS_PARTS])
+        if axis.global_batch:  # the parts are the whole batch's already
+            metrics[0] = axis.all_reduce(metrics[:1].clone())[0]
+        else:
+            metrics = axis.all_reduce(metrics) / axis.size
+            _average_running_stats(state.model, axis)
+        metrics = dict(zip(("loss",) + LOSS_PARTS, metrics.unbind(0)))
+    return {**metrics, "applied": optimizer_step(state)}
+
+
+def _backward_over(model, total, axis) -> None:
+    """`total`'s gradients reduced over `axis` (summed for one batch over
+    it, averaged otherwise) and added to the accumulated ones."""
+    params = list(model.parameters())
+    held = [p.grad for p in params]
+    for p in params:
+        p.grad = None
     total.backward()
-    return {"loss": total.detach(), **{k: parts[k] for k in ("box", "seg", "cls", "dfl")},
-            "applied": optimizer_step(state)}
+    got = [p for p in params if p.grad is not None]
+    flat = torch._utils._flatten_dense_tensors([p.grad for p in got])
+    axis.all_reduce(flat)
+    if not axis.global_batch:
+        flat /= axis.size
+    for p, g in zip(got, torch._utils._unflatten_dense_tensors(flat, [p.grad for p in got])):
+        p.grad = g.clone()
+    for p, h in zip(params, held):
+        if h is not None:
+            p.grad = h if p.grad is None else h + p.grad
+
+
+def _average_running_stats(model, axis) -> None:
+    """The BatchNorm running statistics averaged over `axis` (the
+    reference's ``pmean`` of the updated ``batch_stats``)."""
+    bufs = [b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))]
+    flat = axis.all_reduce(torch._utils._flatten_dense_tensors(bufs)) / axis.size
+    with torch.no_grad():
+        for b, v in zip(bufs, torch._utils._unflatten_dense_tensors(flat, bufs)):
+            b.copy_(v)
 
 
 RESULTS_HEADER = [
@@ -366,12 +421,15 @@ RESULTS_HEADER = [
 
 
 class ResultsWriter:
-    """Per-epoch ``results.csv`` in the reference's schema. One process
-    writes it; multi-process runs are not ported yet (ROADMAP A7)."""
+    """Per-epoch ``results.csv`` in the reference's schema. Every rank runs
+    the train loop; rank 0 owns the file."""
 
     def __init__(self, path, append: bool = False, from_epoch: int | None = None):
         self.path = Path(path)
         self.t0 = time.time()
+        self.enabled = distributed.is_main_process()
+        if not self.enabled:
+            return
         self.path.parent.mkdir(parents=True, exist_ok=True)
         if append and self.path.exists():
             # resume: keep the rows before the resume point and continue the
@@ -396,6 +454,8 @@ class ResultsWriter:
         """`lr` is (bias_lr, weight_lr) or one float. The columns follow
         upstream's group order: pg0 the biases, pg1 the decayed weights, pg2
         the BatchNorm weights; pg1 and pg2 share the plain schedule."""
+        if not self.enabled:
+            return
         lr_b, lr_w = lr if isinstance(lr, (tuple, list)) else (lr, lr)
         row = [
             epoch,
