@@ -108,13 +108,15 @@ pipeline's log lines):
    ``model.0``/``model.1`` of a model of that scale (seeded weights, BN
    statistics perturbed) on 200 random images of 640: f32 within 2e-5, bf16
    within ``stem.bf16_error_bound``; then each instance and its plain
-   version timed in both types, and the bf16 instance's bytes, operations,
-   bound and share of it (``bound`` lines).
-12. lote_scale_s: ``ConsensusPredictor.lote`` at scale s (bf16, 640, GC, two
-   of phase 2's patients) with ``TPU_MSLESSEG_PALLAS_STEM`` on: the
-   predictor is built with the stem's weights, the stem and union kernels
-   launch, the counts cover the volumes, and the consensus agrees with the
-   same call with the stem off (Dice at least 0.99).
+   version timed in both types, and each instance's bytes, operations,
+   bound and share of it (``bound`` lines; in f32 b0 and b1 both on the
+   f32 pipe).
+12. lote_scale_s, lote_scale_m: ``ConsensusPredictor.lote`` at scale s
+   (bf16) and at scale m (f32), 640, GC, two of phase 2's patients, with
+   ``TPU_MSLESSEG_PALLAS_STEM`` on: the predictor is built with the stem's
+   weights, the stem and union kernels launch, the counts cover the
+   volumes, and the consensus agrees with the same call with the stem off
+   (Dice at least 0.99).
 13. train: the train step at full width. YOLO11n-seg at its published
    widths, imgsz 640, bf16 compute (the reference's ``amp``), batch 16 (``accumulate_steps``
    4), ``max_fg`` 64, 64 instance slots with one to five valid, seeded
@@ -195,7 +197,8 @@ the CLAHE kernels' background-heavy ms, the bound and what bounds it;
 and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
 patient's three launches of 50 images; the stem's ``scales`` holds phase
-11's bf16 rows; ``library_ms`` is null, as no single
+11's rows, bf16 with the f32 instance's ms, plain ms, bound and share beside
+them; ``library_ms`` is null, as no single
 PyTorch call computes any of the four functions), the card's ``nvidia-smi`` name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Any failure
@@ -502,15 +505,17 @@ def union_work(torch, mu, proto, mcoef, boxes, keep, stride, out) -> dict:
 
 
 def stem_work(x, out) -> dict:
-    """Bytes and operations of one fused-stem launch on x [M, S, S] bf16 with
-    P2 `out` of M x S/4 x S/4 positions of c1 channels (c0 = c1 / 2 at every
-    published scale): input and P2 once; b0 on the f32 pipe, b1 on the
-    tensor cores."""
+    """Bytes and operations of one fused-stem launch on x [M, S, S] with P2
+    `out` of M x S/4 x S/4 positions of c1 channels (c0 = c1 / 2 at every
+    published scale): input and P2 once; in bf16, b0 on the f32 pipe and b1
+    on the tensor cores; in f32 both on the f32 pipe, so their times add."""
     m, h, w = x.shape
     c1 = out.numel() // (m * (h // 4) * (w // 4))
     c0 = c1 // 2
     b0 = 2.0 * m * (h // 2) * (w // 2) * c0 * 9
     b1 = 2.0 * m * (h // 4) * (w // 4) * c1 * c0 * 9
+    if x.element_size() == 4:  # f32
+        return work_bound(nbytes(x, out), {"b0_b1_f32_flops": (b0 + b1, F32_FLOPS)})
     return work_bound(nbytes(x, out), {"b0_f32_flops": (b0, F32_FLOPS),
                                        "b1_bf16_flops": (b1, BF16_TENSOR_FLOPS)})
 
@@ -994,8 +999,8 @@ def phase_cli_default(torch, P, chain_root: Path, root: Path, chain: dict, count
 def phase_stem_scales(torch, P, gen, dev, card) -> dict:
     """Phase 11: the fused stem's instances of scales n, s, m, l and x against
     ``model.0``/``model.1`` (BN statistics perturbed) at 200 images of 640,
-    in f32 and in bf16, and the bf16 instance's time and bound. Returns
-    {scale: the bf16 row, with the f32 instance's and its plain version's ms}."""
+    in f32 and in bf16, each instance's time and bound. Returns {scale: the
+    bf16 row, with the f32 instance's ms, plain ms, bound and share of it}."""
     x32 = torch.rand((STEM_M, IMGSZ, IMGSZ), generator=gen).to(dev)
     rows = {}
     for scale in STEM_SCALES:
@@ -1025,19 +1030,22 @@ def phase_stem_scales(torch, P, gen, dev, card) -> dict:
                   "m": STEM_M, "imgsz": IMGSZ, **errs,
                   "bound": "atol=rtol=2e-5" if dtype == torch.float32
                   else "1 bf16 ulp of the conv sum through BN and SiLU, + 1 of the output"})
-            work = stem_work(x, got) if dtype == torch.bfloat16 else None
+            work = stem_work(x, got)
             del got, want
             torch.cuda.empty_cache()
             k_ms, p_ms = timed_pair(torch, lambda: P.stem.stem_apply(smodel, w, x),
                                     lambda: P.stem.stem_reference(smodel, w, x), 5, 3)
             emit({"phase": "timing", "kernel": "stem", "scale": scale, "m": STEM_M,
                   "imgsz": IMGSZ, "dtype": name, "kernel_ms": k_ms, "plain_ms": p_ms, **card})
-            if work is None:
-                f32_ms = {"f32_ms": float(np.median(k_ms)), "f32_plain_ms": float(np.median(p_ms))}
+            ms = float(np.median(k_ms))
+            emit_bound("stem", work, ms, 1, f"scale {scale} {name}: one launch of {STEM_M} "
+                                            f"random images of {IMGSZ}")
+            if dtype == torch.float32:
+                f32_ms = {"f32_ms": ms, "f32_plain_ms": float(np.median(p_ms)),
+                          "f32_bound_ms": work["bound_ms"], "f32_bound_by": work["bound_by"],
+                          "f32_share_of_bound": work["bound_ms"] / ms,
+                          "f32_max_abs_err": errs["max_abs_err"], "f32_launches": 1}
             else:
-                ms = float(np.median(k_ms))
-                emit_bound("stem", work, ms, 1, f"scale {scale}: one launch of {STEM_M} "
-                                                f"random images of {IMGSZ}")
                 rows[scale] = {"c0_c1": [c0, c1], "m": STEM_M, "ms": ms,
                                "plain_ms": float(np.median(p_ms)), "bytes": work["bytes"],
                                "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
@@ -1048,12 +1056,12 @@ def phase_stem_scales(torch, P, gen, dev, card) -> dict:
     return rows
 
 
-def phase_lote_scale_s(torch, P, slices, idx, gts, counters, dev) -> dict:
-    """Phase 12: one served ``ConsensusPredictor.lote`` at scale s (bf16,
-    640, GC, two patients) with the fused stem switched on: the predictor is
-    built with the stem's weights, the stem kernel launches, and the result
-    is held against the same call with the stem off."""
-    model, _ = P.create_model(nc=1, scale="s", dtype=torch.bfloat16)
+def phase_lote_wide(torch, P, slices, idx, gts, counters, dev, scale: str, dtype) -> dict:
+    """Phase 12: one served ``ConsensusPredictor.lote`` at a wider `scale` in
+    `dtype` (640, GC, two patients) with the fused stem switched on: the
+    predictor is built with the stem's weights, the stem kernel launches,
+    and the result is held against the same call with the stem off."""
+    model, _ = P.create_model(nc=1, scale=scale, dtype=dtype)
     variables = P.init_variables(model, seed=9)
     for i in range(len(P.STRIDES)):  # no class prior: NMS keeps detections
         variables[f"model.23.cv3.{i}.2.bias"].zero_()
@@ -1065,8 +1073,9 @@ def phase_lote_scale_s(torch, P, slices, idx, gts, counters, dev) -> dict:
         cp_on = P.ConsensusPredictor(model, variables, VOL_SHAPE, **kw)
     with switched(P.stem, "ENABLED", False):
         cp_off = P.ConsensusPredictor(model, variables, VOL_SHAPE, **kw)
+    what = f"scale {scale} {str(dtype).removeprefix('torch.')}"
     if cp_on._stem_w is None or cp_off._stem_w is not None:
-        raise AssertionError("scale s: the switch did not decide the predictor's stem")
+        raise AssertionError(f"{what}: the switch did not decide the predictor's stem")
     zero_launches(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1075,22 +1084,23 @@ def phase_lote_scale_s(torch, P, slices, idx, gts, counters, dev) -> dict:
     lote_s = time.perf_counter() - t0
     launches = read_launches(counters)
     if launches["stem"] < 1 or launches["mask_union"] < 1:
-        raise AssertionError(f"scale s: launches {launches}")
+        raise AssertionError(f"{what}: launches {launches}")
     _, off_cons, off_vols = cp_off.lote(sl, ix, gts[:n_pat])
     torch.cuda.synchronize()
     n_vox = int(np.prod(VOL_SHAPE))
     if tuple(cons.shape) != (n_pat,) + VOL_SHAPE or not bool(cons.any()):
-        raise AssertionError("scale s: the consensus is empty or of the wrong shape")
+        raise AssertionError(f"{what}: the consensus is empty or of the wrong shape")
     for key, c in counts.items():
         if not (bool(torch.isfinite(c).all()) and bool((c.sum(1) == n_vox).all())):
-            raise AssertionError(f"scale s: counts of {key} do not cover the volume")
+            raise AssertionError(f"{what}: counts of {key} do not cover the volume")
     dices = {k: dice(cons if k == "consenso" else vols[k], off_cons if k == "consenso"
                      else off_vols[k]) for k in PLANES + ("consenso",)}
-    emit({"phase": "lote_scale_s", "scale": "s", "dtype": "bfloat16", "patients": n_pat,
+    emit({"phase": f"lote_scale_{scale}", "scale": scale,
+          "dtype": str(dtype).removeprefix("torch."), "patients": n_pat,
           "launches": launches, "dice_stem_on_vs_off": dices, "min_consensus_dice": MIN_DICE,
           "informational": {"lote_s": lote_s, **card_label(torch)}})
     if dices["consenso"] < MIN_DICE:
-        raise AssertionError(f"scale s, stem on vs off: consensus Dice {dices} below {MIN_DICE}")
+        raise AssertionError(f"{what}, stem on vs off: consensus Dice {dices} below {MIN_DICE}")
     return launches
 
 
@@ -2356,11 +2366,15 @@ def main() -> int:
                                     chain, counters, dev)
     torch.cuda.empty_cache()
 
-    # ---- phases 11 and 12: the stem at every scale, served at scale s ------
+    # ---- phases 11 and 12: the stem at every scale, served at s and m ------
     stem_scales = phase_stem_scales(torch, P, gen, dev, card)
     for row in stem_scales.values():
-        max_err["stem"] = max(max_err["stem"], row["max_abs_err"])
-    scale_s_launches = phase_lote_scale_s(torch, P, slices, idx, gts, counters, dev)
+        max_err["stem"] = max(max_err["stem"], row["max_abs_err"], row["f32_max_abs_err"])
+    scale_s_launches = phase_lote_wide(torch, P, slices, idx, gts, counters, dev, "s",
+                                       torch.bfloat16)
+    torch.cuda.empty_cache()
+    scale_m_launches = phase_lote_wide(torch, P, slices, idx, gts, counters, dev, "m",
+                                       torch.float32)
     torch.cuda.empty_cache()
 
     # ---- phases 13 and 14: the train step ----------------------------------
@@ -2390,7 +2404,8 @@ def main() -> int:
 
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
                "cli_chain": chain["launches"], "cli_default": default["launches"],
-               "lote_scale_s": scale_s_launches, "train": train_launches,
+               "lote_scale_s": scale_s_launches, "lote_scale_m_f32": scale_m_launches,
+               "train": train_launches,
                "train_cli_then_serve": train_cli["launches"],
                "train_paralelo": train_par["launches"]}
 

@@ -307,19 +307,34 @@ def _stem_case(dtype, dev, seed=0, scale="n"):
                                      if k.startswith(("model.0.", "model.1."))})
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("size", [64, 256, 96, 200])  # 200: 50 x 50 positions, ragged tiles
-@pytest.mark.parametrize("scale,c1", [("n", 32), ("s", 64), ("m", 128), ("l", 128), ("x", 192)])
-def test_stem_kernel_matches_plain(cuda, dtype, size, scale, c1):
+_SCALES = [("n", 32), ("s", 64), ("m", 128), ("l", 128), ("x", 192)]
+# (m, h, w): square sizes (200: 50 x 50 positions, ragged tiles) in both
+# types at every scale; then the wider f32 instances at the full width of
+# 640, and on a non-square input with an odd image count, ragged in both
+# directions
+_STEM_CASES = [
+    (dtype, (5, size, size), scale, c1)
+    for scale, c1 in _SCALES for size in (64, 256, 96, 200)
+    for dtype in (torch.float32, torch.bfloat16)
+] + [
+    (torch.float32, (2, 640, 640), scale, c1) for scale, c1 in _SCALES if scale in "smx"
+] + [
+    (torch.float32, (3, 96, 200), scale, c1) for scale, c1 in _SCALES if scale != "n"
+]
+
+
+@pytest.mark.parametrize("dtype,shape,scale,c1", _STEM_CASES)
+def test_stem_kernel_matches_plain(cuda, dtype, shape, scale, c1):
     model, w = _stem_case(dtype, cuda, scale=scale)
     assert stem.instance_of(w)[1] == c1
-    x = torch.rand((5, size, size), generator=torch.Generator().manual_seed(size)).to(cuda, dtype)
+    m, h, wd = shape
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(h + wd)).to(cuda, dtype)
     before = stem.LAUNCHES
     got = stem.stem_apply(model, w, x)
     torch.cuda.synchronize()
     assert stem.LAUNCHES == before + 1
     want = stem.stem_reference(model, w, x)
-    assert got.shape == want.shape == (5, c1, size // 4, size // 4)
+    assert got.shape == want.shape == (m, c1, h // 4, wd // 4)
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)

@@ -13,7 +13,8 @@ wrapper's input preparation, on the CPU.
   from the shapes and, for the union, from the pixels the kept boxes hold;
   its background-heavy CLAHE inputs are about half zeros;
   ``tools/kernel_ab.py``'s ablations still find their text in the stem and
-  the CLAHE source.
+  the CLAHE source, and its stem cases reach each scale's kernel instance
+  and hold an output to the stem's tolerance.
 """
 
 import inspect
@@ -25,6 +26,7 @@ import torch
 from tpu_mslesseg_torch.infer import mask_union as mu
 from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
 from tpu_mslesseg_torch.infer.predictor import SlicePredictor
+from tpu_mslesseg_torch.model.yolo11 import create_model
 
 
 @pytest.mark.parametrize("cls", [ConsensusPredictor, SlicePredictor])
@@ -158,6 +160,19 @@ def test_stem_work_counts_both_convolutions():
     assert both["bytes"] == 2 * work["bytes"] and both["bound_ms"] == 2 * work["bound_ms"]
 
 
+def test_stem_work_in_f32_adds_both_convolutions_on_the_f32_pipe():
+    cs = _chip_smoke()
+    x = torch.zeros((2, 64, 96))
+    out = torch.zeros((2, 16, 24, 64))
+    work = cs.stem_work(x, out)
+    assert work["bytes"] == 2 * 64 * 96 * 4 + 2 * 16 * 24 * 64 * 4
+    b0 = 2.0 * 2 * 32 * 48 * 32 * 9
+    b1 = 2.0 * 2 * 16 * 24 * 64 * 32 * 9
+    assert work["ops"] == {"b0_b1_f32_flops": b0 + b1}
+    assert work["ops_ms"] == pytest.approx((b0 + b1) / cs.F32_FLOPS * 1e3)
+    assert work["bound_by"] == "operations"
+
+
 def test_kernel_ab_ablations_still_match_the_stem_source():
     from tpu_mslesseg_torch.tools import kernel_ab
 
@@ -168,9 +183,17 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     assert head.endswith(kernel_ab.STEM_N_BEGIN) and rest.startswith(kernel_ab.STEM_N_END)
     assert "stem_mma_kernel" in src and "stem_fma_kernel" in src
     assert "stem_mma_wide_kernel" in rest and "_wide_kernel" not in src
-    # the tool tells the two argument lists of stem_forward by this symbol
-    assert 'extern "C" int stem_abi_version() { return 2; }' in rest
+    # the tool tells stem_forward's argument lists apart by this symbol
+    assert 'extern "C" int stem_abi_version() { return 3; }' in rest
     for name, subs in kernel_ab.ABLATIONS.items():
+        for old, _ in subs:
+            assert src.count(old) == 1, (name, old)
+    # and the f32 wide kernel, between its own two markers
+    region = (kernel_ab.STEM_F32_WIDE_BEGIN, kernel_ab.STEM_F32_WIDE_END)
+    head, src, rest = kernel_ab.ablatable("stem", text, region)
+    assert head + src + rest == text
+    assert "stem_f32_wide_kernel" in src and "stem_mma_wide_kernel" not in src
+    for name, subs in kernel_ab.F32_WIDE_ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
 
@@ -199,6 +222,27 @@ def test_background_heavy_images_are_about_half_zeros(hw):
     assert torch.equal(out[inside], imgs[inside])  # the disc keeps its pixels
     assert 0.49 < float((~inside).float().mean()) < 0.51
     assert not bool(inside[:, 0, 0].any()) and bool(inside[:, hw[0] // 2, hw[1] // 2].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", ["n", "s", "m", "l", "x"])
+def test_kernel_ab_stem_cases_reach_each_instance(scale, dtype):
+    """The stem weights kernel_ab makes for a scale are that scale's
+    instance, and its reference check passes the plain version's own output
+    and fails one pushed beyond the tolerance."""
+    from tpu_mslesseg_torch.model import stem
+    from tpu_mslesseg_torch.tools import kernel_ab
+
+    gen = torch.Generator().manual_seed(0)
+    w = kernel_ab._stem_weights(gen, *kernel_ab.STEM_CHANNELS[scale], torch.device("cpu"))
+    c0_c1 = stem.instance_of(w)
+    assert c0_c1 == kernel_ab.STEM_CHANNELS[scale] and scale in stem.INSTANCES[c0_c1]
+    x = torch.rand((2, 16, 24), generator=gen).to(dtype)
+    model, _ = create_model(nc=1, scale=scale, dtype=dtype)
+    plain = stem.stem_reference(model, w, x).permute(0, 2, 3, 1)
+    assert kernel_ab._stem_reference_errors(x, w, {"stem": plain}, scale) == {"stem": 0.0}
+    with pytest.raises(AssertionError):
+        kernel_ab._stem_reference_errors(x, w, {"stem": plain.float() + 0.1}, scale)
 
 
 def test_kernel_ab_clahe_variants_still_match_the_clahe_source():

@@ -89,12 +89,12 @@ def test_stem_matches_jax_reference_and_pallas_kernel(variables, dtype, imgsz):
             assert np.all(np.abs(got - want) <= _bf16_ulp_bound(want))
 
 
-@pytest.mark.parametrize("scale,c0,c1", [("s", 32, 64), ("x", 96, 192)])
+@pytest.mark.parametrize("scale,c0,c1", [("s", 32, 64), ("m", 64, 128), ("x", 96, 192)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wider_stems_match_the_pallas_kernel(scale, c0, c1, dtype):
     """The plain version that the wider kernel instances are held against on
     the card, against JAX's kernel (interpreted) and its plain stem, at the
-    channel counts of scales s and x."""
+    channel counts of scales s, m (and l) and x."""
     jdt, tdt = DTYPES[dtype]
     v = _variables(scale)
     jmodel, _ = j_create(nc=1, scale=scale, dtype=jdt)

@@ -157,9 +157,10 @@ def stem_apply(model, weights, x):
         x = x.clone()
     out = torch.empty((m, h // 4, w // 4, c1), dtype=x.dtype, device=x.device)
     bf16 = x.dtype == torch.bfloat16
-    # the wider instances' bf16 path lays w1 out in fragment order first
-    wfrag = (torch.empty(9 * c0 * c1, dtype=torch.bfloat16, device=x.device)
-             if bf16 and (c0, c1) != (16, 32) else None)
+    # the wider instances lay w1 out for their kernel first: bf16 fragments,
+    # or f32 [c0, 3, 3, c1]
+    wfrag = (torch.empty(9 * c0 * c1, dtype=x.dtype, device=x.device)
+             if (c0, c1) != (16, 32) else None)
     fn = _lib()
     with torch.cuda.device(x.device):
         err = fn(

@@ -1,12 +1,15 @@
 """A/B timing of the port's CUDA kernel sources in one process on one card.
 
     python -m tpu_mslesseg_torch.tools.kernel_ab [--parent DIR] [--ablate]
-        [--kernels stem,mask_union,clahe]
+        [--kernels stem,mask_union,clahe] [--stem-scales n] [--stem-dtype bfloat16]
 
 Builds each variant of ``csrc/stem.cu``, ``csrc/mask_union.cu`` and
 ``csrc/clahe_tile_lut.cu`` with ``nvcc`` (the flags of ``_build``) into a
 temporary directory and times them on the same seeded inputs at the main
-path's launch shapes: the bf16 stem at 200 and 600 images of 640; the bf16
+path's launch shapes: the stem (by default scale n's bf16 instance) at 200
+and 600 images of 640 (a wider instance at 200, phase 11's launch of
+``chip_smoke.py``), each output also held against ``stem_reference``
+(f32 within atol = rtol = 2e-5, bf16 within ``stem.bf16_error_bound``); the bf16
 union at 200 images with about 225 kept detections each (a CLAHE
 dispatch's per-plane launch) and at 600 with about 85 (a GC dispatch's one
 launch); the CLAHE tile LUTs and the CLAHE blend at 200 L images of each
@@ -20,16 +23,21 @@ largest difference from this tree's kernel.
 
 - ``--parent DIR``: also the kernels of another tree (an unpacked ``git
   archive`` of the parent commit), each through its own C interface.
-- ``--ablate``: also copies of this tree's stem, tile-LUT and blend
-  kernels with one part of their work taken out (their outputs are wrong by
-  design): what each part costs; and the tile-LUT kernel with equal values
-  aggregated across a warp (``__match_any_sync``) before the histogram's
-  atomics (the same LUTs by another route).
+- ``--ablate``: also copies of this tree's stem (scale n's kernels and
+  the f32 wide kernel), tile-LUT and blend kernels with one part of their
+  work taken out (their outputs are wrong by design): what each part costs;
+  and the tile-LUT kernel with equal values aggregated across a warp
+  (``__match_any_sync``) before the histogram's atomics (the same LUTs by
+  another route).
+- ``--kernels``: which of the three sources to time (all by default).
+- ``--stem-scales``, ``--stem-dtype``: the stem instances to time (any of
+  n, s, m, l, x) and their type (bfloat16 or float32). The ablations of
+  scale n's kernels are timed at scale n, those of the f32 wide kernel at
+  the wider scales in f32.
 
 The CLAHE kernels take less time than the host takes to launch them, so
 their lines also carry ``graph_ms``: the device time of a launch, from
 replays of a CUDA graph of 20 launches.
-- ``--kernels``: which of the three sources to time (all by default).
 """
 
 from __future__ import annotations
@@ -74,22 +82,25 @@ _STORE = ((
     "if (c0 + i < w2) orow[idx] =",
     "if (c0 + i == -1) orow[idx] =",
 ),)
-# the stem's ablations are of scale n's kernels (the ones this tool times),
-# which stem.cu holds between these two lines; the wider instances after
-# them repeat some of the text
+# the stem's ablations rewrite one region of stem.cu, between two marker
+# lines: scale n's kernels, or the f32 wide kernel (the other kernels repeat
+# some of the text)
 STEM_N_BEGIN = "// BEGIN scale n's kernels"
 STEM_N_END = "// END scale n's kernels"
+STEM_F32_WIDE_BEGIN = "// BEGIN the f32 wide kernel"
+STEM_F32_WIDE_END = "// END the f32 wide kernel"
+STEM_CHANNELS = {"n": (16, 32), "s": (32, 64), "m": (64, 128), "l": (64, 128), "x": (96, 192)}
 
 
-def ablatable(base: str, text: str) -> tuple[str, str, str]:
+def ablatable(base: str, text: str, region=(STEM_N_BEGIN, STEM_N_END)) -> tuple[str, str, str]:
     """``<base>.cu`` as (what precedes, the part the ablations rewrite, what
-    follows)."""
+    follows); in stem.cu the part between the `region` markers."""
     if base != "stem":
         return "", text, ""
-    head, begin, rest = text.partition(STEM_N_BEGIN)
-    body, end, tail = rest.partition(STEM_N_END)
+    head, begin, rest = text.partition(region[0])
+    body, end, tail = rest.partition(region[1])
     if not (begin and end):
-        raise RuntimeError(f"stem.cu no longer holds {STEM_N_BEGIN!r} and {STEM_N_END!r}")
+        raise RuntimeError(f"stem.cu no longer holds {region[0]!r} and {region[1]!r}")
     return head + begin, body, end + tail
 
 
@@ -100,6 +111,25 @@ ABLATIONS = {
     "stem_without_mma": _MMA,
     "stem_without_input_reads": _INPUT,
     "stem_without_output_writes": _STORE,
+}
+# the f32 wide kernel's parts; `h < 0` (h is an argument) never holds, and
+# the compiler cannot drop the code it guards
+_W_B1_ACT = tuple((f"bn_silu(acc[i][4 * j + {k}], mu.{c}, sc.{c}, be.{c})",
+                   f"acc[i][4 * j + {k}] * sc.{c}") for k, c in enumerate("xyzw"))
+_W_B0_ACT = (("dst[k * L::kP1H * L::kRS] = inside ? bn_silu(a[k], bn.x, bn.y, bn.z) : 0.0f;",
+              "dst[k * L::kP1H * L::kRS] = inside ? a[k] * bn.y : 0.0f;"),)
+F32_WIDE_ABLATIONS = {
+    "stem_f32_wide_without_b0": ((
+        "for (int i = tid; i < 4 * kPatch; i += kThreads) {",
+        "for (int i = tid; i < 4 * kPatch && h < 0; i += kThreads) {"),),
+    "stem_f32_wide_without_b0_silu": _W_B0_ACT,
+    "stem_f32_wide_without_b1": ((
+        "for (int cl = 0; cl < kFGroup; ++cl) {", "for (int cl = 0; cl < kFGroup && h < 0; ++cl) {"),),
+    "stem_f32_wide_without_b1_silu": _W_B1_ACT,
+    "stem_f32_wide_without_w1_copies": ((
+        "cp_async16(dst + 4 * i,", "if (h < 0) cp_async16(dst + 4 * i,"),),
+    "stem_f32_wide_without_output_writes": ((
+        "*reinterpret_cast<float4*>(dst + o) =", "if (h < 0) *reinterpret_cast<float4*>(dst + o) ="),),
 }
 # CLAHE variants, all built from clahe_tile_lut.cu: the tile LUTs with equal
 # values aggregated across the warp before the histogram's atomics
@@ -207,25 +237,79 @@ def _compare(runs: dict, reps: int, graph=()) -> dict:
     return res
 
 
+def _stem_weights(gen, c0: int, c1: int, dev) -> dict:
+    """Seeded stem tensors of (c0, c1) under the model's keys: conv weights
+    of std 1 / sqrt(fan-in), BN statistics away from identity."""
+    w = {}
+    for b, shape in (("model.0", (c0, 1, 3, 3)), ("model.1", (c1, c0, 3, 3))):
+        n = shape[0]
+        w[f"{b}.conv.weight"] = torch.randn(shape, generator=gen) / np.sqrt(np.prod(shape[1:]))
+        w[f"{b}.bn.weight"] = torch.rand(n, generator=gen) + 0.5
+        w[f"{b}.bn.bias"] = torch.randn(n, generator=gen) * 0.3 + 0.1
+        w[f"{b}.bn.running_mean"] = torch.randn(n, generator=gen) * 0.2 + 0.3
+        w[f"{b}.bn.running_var"] = torch.rand(n, generator=gen) * 1.5 + 0.5
+    return {k: v.to(dev).contiguous() for k, v in w.items()}
+
+
 def _stem_runs(libs, x, weights, stream):
+    """Each library's stem launch on x with `weights` (in ``stem._LEAVES``
+    order a block), through the argument list its ``stem_abi_version``
+    names."""
+    from tpu_mslesseg_torch.model import stem
+
     m, h, w = x.shape
+    terms = [weights[f"{b}.{leaf}"] for b in stem._BLOCKS for leaf in stem._LEAVES]
+    c0, c1 = stem.instance_of(weights)
+    bf16 = int(x.dtype == torch.bfloat16)
     runs, outs = {}, {}
     for name, lib in libs.items():
         fn = lib.stem_forward
-        outs[name] = torch.empty((m, h // 4, w // 4, 32), dtype=x.dtype, device=x.device)
+        outs[name] = torch.empty((m, h // 4, w // 4, c1), dtype=x.dtype, device=x.device)
+        # the scratch where a wide instance lays w1 out: 9 c0 c1 of x's type
+        # (version 3), bf16 fragments on the bf16 path only (version 2)
+        scratch = torch.empty(9 * c0 * c1, dtype=torch.float32, device=x.device)
         tail = [outs[name].data_ptr(), m, h, w, 1e-3, stream]
         # a library without the symbol has the first interface: scale n only
         version = lib.stem_abi_version() if hasattr(lib, "stem_abi_version") else 1
-        if version == 2:  # an instance a scale: n's here
+        if version in (2, 3):  # an instance a scale
             fn.argtypes = [P, I] + [P] * 10 + [I, I, P, P, I, I, I, F, P]
-            args = [x.data_ptr(), 1, *(t.data_ptr() for t in weights), 16, 32, None, *tail]
-        elif version == 1:
+            args = [x.data_ptr(), bf16, *(t.data_ptr() for t in terms), c0, c1,
+                    scratch.data_ptr(), *tail]
+        elif version == 1 and (c0, c1) == (16, 32):
             fn.argtypes = [P, I] + [P] * 10 + [P, I, I, I, F, P]
-            args = [x.data_ptr(), 1, *(t.data_ptr() for t in weights), *tail]
+            args = [x.data_ptr(), bf16, *(t.data_ptr() for t in terms), *tail]
         else:
-            raise RuntimeError(f"{name}: stem_abi_version {version} is not known")
-        runs[name] = lambda fn=fn, args=args: fn(*args)
+            raise RuntimeError(f"{name}: stem_abi_version {version} has no ({c0}, {c1})")
+        runs[name] = lambda fn=fn, args=args, scratch=scratch: _checked(fn(*args))
     return runs, outs
+
+
+def _checked(err: int) -> None:
+    if err:
+        raise RuntimeError(f"kernel launch failed: CUDA error {err}")
+
+
+def _stem_reference_errors(x, weights, outs, scale: str) -> dict:
+    """Each output's largest difference from ``stem_reference`` on x
+    (cuDNN in full f32 where x is f32); raises where one is beyond the
+    stem's tolerance (f32: atol = rtol = 2e-5; bf16: ``bf16_error_bound``)."""
+    from tpu_mslesseg_torch.model import stem
+    from tpu_mslesseg_torch.model.yolo11 import create_model
+
+    model, _ = create_model(nc=1, scale=scale, dtype=x.dtype)
+    want = stem.stem_reference(model, weights, x).permute(0, 2, 3, 1).float()
+    bound = (stem.bf16_error_bound(model, weights, x, want.permute(0, 3, 1, 2))
+             .permute(0, 2, 3, 1) if x.dtype == torch.bfloat16 else None)
+    errs = {}
+    for name, got in outs.items():
+        d = (got.float() - want).abs()
+        errs[name] = float(d.max())
+        if bound is None:
+            torch.testing.assert_close(got.float(), want, atol=2e-5, rtol=2e-5,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+        elif not bool((d <= bound).all()):
+            raise AssertionError(f"{name}: beyond stem.bf16_error_bound")
+    return errs
 
 
 def _union_runs(libs, sources, proto, coef, boxes, keep, stream):
@@ -331,10 +415,16 @@ def main(argv=None) -> int:
                     help="also time the kernels' ablations and the match-any tile LUTs")
     ap.add_argument("--kernels", default="stem,mask_union,clahe",
                     help="comma-separated sources to time: stem, mask_union, clahe")
+    ap.add_argument("--stem-scales", default="n",
+                    help="comma-separated stem instances to time: n, s, m, l, x")
+    ap.add_argument("--stem-dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
     if not which <= {"stem", "mask_union", "clahe"}:
         raise SystemExit(f"kernel_ab: unknown kernels {sorted(which)}")
+    scales = args.stem_scales.split(",")
+    if not set(scales) <= set(STEM_CHANNELS):
+        raise SystemExit(f"kernel_ab: unknown stem scales {scales}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA device")
     dev = torch.device("cuda")
@@ -353,11 +443,13 @@ def main(argv=None) -> int:
                 for name in list(srcs):
                     srcs[f"{name}_parent"] = parent / srcs[name].name
         if args.ablate:
-            for srcs, base, ablations in ((stem_src, "stem", ABLATIONS),
-                                          (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS)):
+            for srcs, base, ablations, region in (
+                    (stem_src, "stem", ABLATIONS, (STEM_N_BEGIN, STEM_N_END)),
+                    (stem_src, "stem", F32_WIDE_ABLATIONS, (STEM_F32_WIDE_BEGIN, STEM_F32_WIDE_END)),
+                    (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS, None)):
                 if not srcs:
                     continue
-                head, body, tail = ablatable(base, srcs[base].read_text())
+                head, body, tail = ablatable(base, srcs[base].read_text(), region)
                 for name, subs in ablations.items():
                     src = body
                     for old, new in subs:
@@ -372,20 +464,29 @@ def main(argv=None) -> int:
 
         stream = torch.cuda.current_stream().cuda_stream
         gen = torch.Generator().manual_seed(0)
-        # model.0 and model.1: conv weight, bn weight, bias, running mean, var
-        sizes = (16 * 9, 16, 16, 16, 16, 32 * 16 * 9, 32, 32, 32, 32)
-        weights = [torch.randn(s, generator=gen) * 0.3 for s in sizes]
-        for i in (4, 9):  # running variances
-            weights[i] = weights[i].abs() + 0.5
-        weights = [t.to(dev).contiguous() for t in weights]
-        for m in (200, 600) if stem_src else ():
-            x = torch.rand((m, 640, 640), generator=gen).to(dev, torch.bfloat16)
-            runs, outs = _stem_runs({n: libs[n] for n in stem_src}, x, weights, stream)
-            res = _compare(runs, 5)
-            for n in res:
-                res[n]["max_diff"] = float((outs[n].float() - outs["stem"].float()).abs().max())
-            print(json.dumps({"kernel": "stem", "m": m, "imgsz": 640, "variants": res}), flush=True)
-            del x, runs, outs
+        torch.backends.cudnn.allow_tf32 = False  # the f32 reference in full f32
+        dtype = getattr(torch, args.stem_dtype)
+        for scale in scales if stem_src else ():
+            # each ablation rewrites the instance it is timed with
+            ablated = ABLATIONS if scale == "n" else (
+                F32_WIDE_ABLATIONS if args.stem_dtype == "float32" else {})
+            names = [n for n in stem_src if n in ("stem", "stem_parent") or n in ablated]
+            weights = _stem_weights(gen, *STEM_CHANNELS[scale], dev)
+            for m in (200, 600) if scale == "n" else (200,):
+                x = torch.rand((m, 640, 640), generator=gen).to(dev, dtype)
+                runs, outs = _stem_runs({n: libs[n] for n in names}, x, weights, stream)
+                res = _compare(runs, 5 if scale == "n" else 3)
+                ref_err = _stem_reference_errors(
+                    x, weights, {n: outs[n] for n in outs if n not in ablated}, scale)
+                for n in res:
+                    res[n]["max_diff"] = float((outs[n].float() - outs["stem"].float()).abs().max())
+                    if n in ref_err:
+                        res[n]["max_abs_err_vs_reference"] = ref_err[n]
+                print(json.dumps({"kernel": "stem", "scale": scale,
+                                  "c0_c1": list(STEM_CHANNELS[scale]), "dtype": args.stem_dtype,
+                                  "m": m, "imgsz": 640, "variants": res}), flush=True)
+                del x, runs, outs
+                torch.cuda.empty_cache()
 
         for n, keep_share in ((200, 0.75), (600, 0.283)) if union_src else ():
             k = 300
