@@ -196,6 +196,15 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     for name, subs in kernel_ab.F32_WIDE_ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
+    # and the bf16 wide kernel, between its own two markers
+    region = (kernel_ab.STEM_BF16_WIDE_BEGIN, kernel_ab.STEM_BF16_WIDE_END)
+    head, src, rest = kernel_ab.ablatable("stem", text, region)
+    assert head + src + rest == text
+    assert "stem_mma_wide_kernel" in src and "stem_f32_wide_kernel" not in src
+    assert "stem_mma_kernel" not in src
+    for name, subs in kernel_ab.BF16_WIDE_ABLATIONS.items():
+        for old, _ in subs:
+            assert src.count(old) == 1, (name, old)
 
 
 def test_clahe_works_count_images_luts_and_output():

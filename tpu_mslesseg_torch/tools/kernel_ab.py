@@ -23,8 +23,8 @@ largest difference from this tree's kernel.
 
 - ``--parent DIR``: also the kernels of another tree (an unpacked ``git
   archive`` of the parent commit), each through its own C interface.
-- ``--ablate``: also copies of this tree's stem (scale n's kernels and
-  the f32 wide kernel), tile-LUT and blend kernels with one part of their
+- ``--ablate``: also copies of this tree's stem (scale n's kernels, and
+  the wide kernel of ``--stem-dtype``), tile-LUT and blend kernels with one part of their
   work taken out (their outputs are wrong by design): what each part costs;
   and the tile-LUT kernel with equal values aggregated across a warp
   (``__match_any_sync``) before the histogram's atomics (the same LUTs by
@@ -32,8 +32,8 @@ largest difference from this tree's kernel.
 - ``--kernels``: which of the three sources to time (all by default).
 - ``--stem-scales``, ``--stem-dtype``: the stem instances to time (any of
   n, s, m, l, x) and their type (bfloat16 or float32). The ablations of
-  scale n's kernels are timed at scale n, those of the f32 wide kernel at
-  the wider scales in f32.
+  scale n's kernels are built and timed where n is asked for, those of the
+  wide kernel of the asked type (bf16 or f32) where a wider scale is.
 
 The CLAHE kernels take less time than the host takes to launch them, so
 their lines also carry ``graph_ms``: the device time of a launch, from
@@ -89,6 +89,8 @@ STEM_N_BEGIN = "// BEGIN scale n's kernels"
 STEM_N_END = "// END scale n's kernels"
 STEM_F32_WIDE_BEGIN = "// BEGIN the f32 wide kernel"
 STEM_F32_WIDE_END = "// END the f32 wide kernel"
+STEM_BF16_WIDE_BEGIN = "// BEGIN the bf16 wide kernel"
+STEM_BF16_WIDE_END = "// END the bf16 wide kernel"
 STEM_CHANNELS = {"n": (16, 32), "s": (32, 64), "m": (64, 128), "l": (64, 128), "x": (96, 192)}
 
 
@@ -130,6 +132,23 @@ F32_WIDE_ABLATIONS = {
         "cp_async16(dst + 4 * i,", "if (h < 0) cp_async16(dst + 4 * i,"),),
     "stem_f32_wide_without_output_writes": ((
         "*reinterpret_cast<float4*>(dst + o) =", "if (h < 0) *reinterpret_cast<float4*>(dst + o) ="),),
+}
+# the bf16 wide kernel's parts, guarded by `h < 0` as the f32 wide kernel's
+BF16_WIDE_ABLATIONS = {
+    "stem_bf16_wide_without_b0": ((
+        "for (int i = tid; i < (C0 / 16) * kPatch; i += kThreads) {",
+        "for (int i = tid; i < (C0 / 16) * kPatch && h < 0; i += kThreads) {"),),
+    "stem_bf16_wide_without_b0_silu": ((
+        "y[u] = inside ? bn_silu(round_bf16(acc[c + u]), bn.x, bn.y, bn.z) : 0.0f;",
+        "y[u] = inside ? acc[c + u] * bn.y : 0.0f;"),),
+    "stem_bf16_wide_without_mma": _MMA,
+    "stem_bf16_wide_without_b1_silu": _B1_ACT,
+    "stem_bf16_wide_without_w1_copies": ((
+        "for (int i = tid; i < L::kChunkU4; i += kThreads) bs[i] = src[i];",
+        "for (int i = tid; i < L::kChunkU4 && h < 0; i += kThreads) bs[i] = src[i];"),),
+    "stem_bf16_wide_without_output_writes": ((
+        "*reinterpret_cast<uint4*>(orow + static_cast<size_t>(i) * C1 + ch * 8) =",
+        "if (h < 0) *reinterpret_cast<uint4*>(orow + static_cast<size_t>(i) * C1 + ch * 8) ="),),
 }
 # CLAHE variants, all built from clahe_tile_lut.cu: the tile LUTs with equal
 # values aggregated across the warp before the histogram's atomics
@@ -432,6 +451,11 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
 
+    # the wider scales' ablations rewrite the instance of the type they are timed in
+    wide_ablations, wide_region = (
+        (F32_WIDE_ABLATIONS, (STEM_F32_WIDE_BEGIN, STEM_F32_WIDE_END))
+        if args.stem_dtype == "float32"
+        else (BF16_WIDE_ABLATIONS, (STEM_BF16_WIDE_BEGIN, STEM_BF16_WIDE_END)))
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
         tmp = Path(tmp)
         stem_src = {"stem": CSRC / "stem.cu"} if "stem" in which else {}
@@ -445,9 +469,10 @@ def main(argv=None) -> int:
         if args.ablate:
             for srcs, base, ablations, region in (
                     (stem_src, "stem", ABLATIONS, (STEM_N_BEGIN, STEM_N_END)),
-                    (stem_src, "stem", F32_WIDE_ABLATIONS, (STEM_F32_WIDE_BEGIN, STEM_F32_WIDE_END)),
+                    (stem_src, "stem", wide_ablations, wide_region),
                     (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS, None)):
-                if not srcs:
+                if not srcs or (ablations is ABLATIONS and "n" not in scales) or (
+                        ablations is wide_ablations and scales == ["n"]):
                     continue
                 head, body, tail = ablatable(base, srcs[base].read_text(), region)
                 for name, subs in ablations.items():
@@ -468,8 +493,7 @@ def main(argv=None) -> int:
         dtype = getattr(torch, args.stem_dtype)
         for scale in scales if stem_src else ():
             # each ablation rewrites the instance it is timed with
-            ablated = ABLATIONS if scale == "n" else (
-                F32_WIDE_ABLATIONS if args.stem_dtype == "float32" else {})
+            ablated = ABLATIONS if scale == "n" else wide_ablations
             names = [n for n in stem_src if n in ("stem", "stem_parent") or n in ablated]
             weights = _stem_weights(gen, *STEM_CHANNELS[scale], dev)
             for m in (200, 600) if scale == "n" else (200,):
