@@ -102,7 +102,9 @@ pipeline's log lines):
    phase 9's volumes (bf16 results depend on the batch: the chain serves 50
    slices a call, ``rapido`` 200 a plane) and both phases' stage timings.
 
-11. stem_kernel (scales n, s, m, l, x): the fused stem's instance of every
+11. stem_activation_check, then stem_kernel (scales n, s, m, l, x): the bf16
+   wide kernel's branch-free SiLU against ``y / (1 + expf(-y))`` on all 2^32
+   f32 inputs (no mismatch allowed); the fused stem's instance of every
    published scale, (c0, c1) = (16, 32), (32, 64), (64, 128) for m and for
    l, (96, 192), against
    ``model.0``/``model.1`` of a model of that scale (seeded weights, BN
@@ -999,8 +1001,15 @@ def phase_cli_default(torch, P, chain_root: Path, root: Path, chain: dict, count
 def phase_stem_scales(torch, P, gen, dev, card) -> dict:
     """Phase 11: the fused stem's instances of scales n, s, m, l and x against
     ``model.0``/``model.1`` (BN statistics perturbed) at 200 images of 640,
-    in f32 and in bf16, each instance's time and bound. Returns {scale: the
-    bf16 row, with the f32 instance's ms, plain ms, bound and share of it}."""
+    in f32 and in bf16, each instance's time and bound; first the bf16 wide
+    kernel's branch-free SiLU against the plain one on every f32 input.
+    Returns {scale: the bf16 row, with the f32 instance's ms, plain ms, bound
+    and share of it}."""
+    bad = P.stem.bf16_activation_mismatches(dev)
+    emit({"phase": "stem_activation_check", "inputs": 2 ** 32, "mismatches": bad,
+          "compared": "silu_branch_free (with its fallback) against y / (1 + expf(-y)), bits"})
+    if bad:
+        raise AssertionError(f"stem: the bf16 wide kernel's SiLU differs on {bad} f32 inputs")
     x32 = torch.rand((STEM_M, IMGSZ, IMGSZ), generator=gen).to(dev)
     rows = {}
     for scale in STEM_SCALES:

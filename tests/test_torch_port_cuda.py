@@ -309,9 +309,9 @@ def _stem_case(dtype, dev, seed=0, scale="n"):
 
 _SCALES = [("n", 32), ("s", 64), ("m", 128), ("l", 128), ("x", 192)]
 # (m, h, w): square sizes (200: 50 x 50 positions, ragged tiles) in both
-# types at every scale; then the wider f32 instances at the full width of
-# 640, and on a non-square input with an odd image count, ragged in both
-# directions
+# types at every scale; then the wider instances of both types at the full
+# width of 640, and on a non-square input with an odd image count, ragged in
+# both directions
 _STEM_CASES = [
     (dtype, (5, size, size), scale, c1)
     for scale, c1 in _SCALES for size in (64, 256, 96, 200)
@@ -320,6 +320,10 @@ _STEM_CASES = [
     (torch.float32, (2, 640, 640), scale, c1) for scale, c1 in _SCALES if scale in "smx"
 ] + [
     (torch.float32, (3, 96, 200), scale, c1) for scale, c1 in _SCALES if scale != "n"
+] + [
+    (torch.bfloat16, (2, 640, 640), scale, c1) for scale, c1 in _SCALES if scale in "smx"
+] + [
+    (torch.bfloat16, (3, 96, 200), scale, c1) for scale, c1 in _SCALES if scale != "n"
 ]
 
 
@@ -341,6 +345,10 @@ def test_stem_kernel_matches_plain(cuda, dtype, shape, scale, c1):
     else:
         bound = stem.bf16_error_bound(model, w, x, want)
         assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def test_stem_bf16_activation_is_exact_on_every_f32_input(cuda):
+    assert stem.bf16_activation_mismatches(cuda) == 0
 
 
 def test_stem_wrapper_checks_its_inputs(cuda):

@@ -182,9 +182,9 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     assert head + src + rest == text
     assert head.endswith(kernel_ab.STEM_N_BEGIN) and rest.startswith(kernel_ab.STEM_N_END)
     assert "stem_mma_kernel" in src and "stem_fma_kernel" in src
-    assert "stem_mma_wide_kernel" in rest and "_wide_kernel" not in src
+    assert "stem_bf16_wide_kernel" in rest and "_wide_kernel" not in src
     # the tool tells stem_forward's argument lists apart by this symbol
-    assert 'extern "C" int stem_abi_version() { return 3; }' in rest
+    assert 'extern "C" int stem_abi_version() { return 4; }' in rest
     for name, subs in kernel_ab.ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
@@ -192,7 +192,7 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     region = (kernel_ab.STEM_F32_WIDE_BEGIN, kernel_ab.STEM_F32_WIDE_END)
     head, src, rest = kernel_ab.ablatable("stem", text, region)
     assert head + src + rest == text
-    assert "stem_f32_wide_kernel" in src and "stem_mma_wide_kernel" not in src
+    assert "stem_f32_wide_kernel" in src and "stem_bf16_wide_kernel" not in src
     for name, subs in kernel_ab.F32_WIDE_ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
@@ -200,8 +200,8 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     region = (kernel_ab.STEM_BF16_WIDE_BEGIN, kernel_ab.STEM_BF16_WIDE_END)
     head, src, rest = kernel_ab.ablatable("stem", text, region)
     assert head + src + rest == text
-    assert "stem_mma_wide_kernel" in src and "stem_f32_wide_kernel" not in src
-    assert "stem_mma_kernel" not in src
+    assert "stem_bf16_wide_kernel" in src and "stem_f32_wide_kernel" not in src
+    assert "stem_mma_kernel" not in src and "stem_mma_wide_kernel" not in text
     for name, subs in kernel_ab.BF16_WIDE_ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)

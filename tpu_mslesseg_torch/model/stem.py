@@ -119,6 +119,14 @@ def bf16_error_bound(model, weights, x, p2):
     return 1.1 * scale[None, :, None, None] * ulp(acc) + ulp(p2.float())
 
 
+def scratch_bytes(c0: int, c1: int, bf16: bool) -> int:
+    """Bytes of the scratch where a wider instance lays out its weights
+    once a launch: in f32 w1 as [c0, 3, 3, c1]; in bf16 w1 and w0 as the
+    kernel's tensor-core fragments, 9 c0 c1 and 16 c0 bf16, then both
+    blocks' BN terms, 4 c0 + 4 c1 f32."""
+    return 18 * c0 * c1 + 4 * (12 * c0 + 4 * c1) if bf16 else 36 * c0 * c1
+
+
 def _lib():
     lib = _build.load("stem")
     fn = lib.stem_forward
@@ -128,6 +136,20 @@ def _lib():
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def bf16_activation_mismatches(device) -> int:
+    """The f32 inputs, of all 2^32, on which the bf16 wide kernel's
+    branch-free SiLU differs, bit for bit, from the plain ``y / (1 +
+    expf(-y))``, counted on the CUDA `device`; 0 when it is exact."""
+    fn = _build.load("stem").stem_bf16_activation_check
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(bad.device):
+        err = fn(bad.data_ptr(), torch.cuda.current_stream(bad.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stem activation check launch failed: CUDA error {err}")
+    return int(bad.item())
 
 
 def stem_apply(model, weights, x):
@@ -157,9 +179,7 @@ def stem_apply(model, weights, x):
         x = x.clone()
     out = torch.empty((m, h // 4, w // 4, c1), dtype=x.dtype, device=x.device)
     bf16 = x.dtype == torch.bfloat16
-    # the wider instances lay w1 out for their kernel first: bf16 fragments,
-    # or f32 [c0, 3, 3, c1]
-    wfrag = (torch.empty(9 * c0 * c1, dtype=x.dtype, device=x.device)
+    wfrag = (torch.empty(scratch_bytes(c0, c1, bf16), dtype=torch.uint8, device=x.device)
              if (c0, c1) != (16, 32) else None)
     fn = _lib()
     with torch.cuda.device(x.device):

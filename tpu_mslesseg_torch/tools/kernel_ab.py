@@ -133,22 +133,32 @@ F32_WIDE_ABLATIONS = {
     "stem_f32_wide_without_output_writes": ((
         "*reinterpret_cast<float4*>(dst + o) =", "if (h < 0) *reinterpret_cast<float4*>(dst + o) ="),),
 }
-# the bf16 wide kernel's parts, guarded by `h < 0` as the f32 wide kernel's
+# the bf16 wide kernel's parts. Each stand-in keeps the values finite (zeroed
+# P1 slabs and w1 stages, bounded stand-in products), so that no ablation sends
+# the activations to the division's slow path
 BF16_WIDE_ABLATIONS = {
     "stem_bf16_wide_without_b0": ((
-        "for (int i = tid; i < (C0 / 16) * kPatch; i += kThreads) {",
-        "for (int i = tid; i < (C0 / 16) * kPatch && h < 0; i += kThreads) {"),),
+        "for (int r = r_lo; r < r_hi; ++r) {", "for (int r = r_lo; r < r_hi && h < 0; ++r) {"), (
+        "  slab(0, 0, L::kRounds);\n",
+        "  for (int i = tid; i < L::kP1 / 4; i += kT) "
+        "reinterpret_cast<uint4*>(p1s)[i] = make_uint4(0, 0, 0, 0);\n"
+        "  __syncthreads();\n  slab(0, 0, L::kRounds);\n"),),
     "stem_bf16_wide_without_b0_silu": ((
-        "y[u] = inside ? bn_silu(round_bf16(acc[c + u]), bn.x, bn.y, bn.z) : 0.0f;",
-        "y[u] = inside ? acc[c + u] * bn.y : 0.0f;"),),
-    "stem_bf16_wide_without_mma": _MMA,
-    "stem_bf16_wide_without_b1_silu": _B1_ACT,
+        "y[k] = (y[k] - bn.x) * bn.y + bn.z;", "y[k] = y[k] * bn.y;"), (
+        "q[k] = silu_branch_free(y[k], slow);", "q[k] = y[k];"),),
+    "stem_bf16_wide_without_mma": ((
+        "Wgmma<L::kNW>::run(acc, a[dx], wgmma_desc(bs + dx * 2 * C1));",
+        "acc[dx] += __uint_as_float((a[dx][0] ^ a[dx][3]) & 0x3f00ffffu);"),),
+    "stem_bf16_wide_without_b1_silu": ((
+        "z[e] = (z[e] - bn.x) * bn.y + bn.z;", "z[e] = z[e] * bn.y;"), (
+        "v[e] = silu_branch_free(z[e], slow);", "v[e] = z[e];"),),
     "stem_bf16_wide_without_w1_copies": ((
-        "for (int i = tid; i < L::kChunkU4; i += kThreads) bs[i] = src[i];",
-        "for (int i = tid; i < L::kChunkU4 && h < 0; i += kThreads) bs[i] = src[i];"),),
+        "cp_async16(dst + i, src + i);",
+        "if (h < 0) cp_async16(dst + i, src + i); else dst[i] = make_uint4(0, 0, 0, 0);"),),
     "stem_bf16_wide_without_output_writes": ((
-        "*reinterpret_cast<uint4*>(orow + static_cast<size_t>(i) * C1 + ch * 8) =",
-        "if (h < 0) *reinterpret_cast<uint4*>(orow + static_cast<size_t>(i) * C1 + ch * 8) ="),),
+        "*reinterpret_cast<uint4*>(out + ((static_cast<size_t>(img) * h2 + r2) * w2 + c0 + i)",
+        "if (h < 0) *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(img) * h2 + r2) * w2 "
+        "+ c0 + i)"),),
 }
 # CLAHE variants, all built from clahe_tile_lut.cu: the tile LUTs with equal
 # values aggregated across the warp before the histogram's atomics
@@ -284,13 +294,15 @@ def _stem_runs(libs, x, weights, stream):
     for name, lib in libs.items():
         fn = lib.stem_forward
         outs[name] = torch.empty((m, h // 4, w // 4, c1), dtype=x.dtype, device=x.device)
-        # the scratch where a wide instance lays w1 out: 9 c0 c1 of x's type
-        # (version 3), bf16 fragments on the bf16 path only (version 2)
+        # the scratch where a wide instance lays its weights out: at most 9 c0
+        # c1 f32 (version 2: bf16 fragments; 3: also f32 w1; 4: the bf16
+        # fragments and 12 c0 + 4 c1 words of the other parameters)
         scratch = torch.empty(9 * c0 * c1, dtype=torch.float32, device=x.device)
+        assert scratch.numel() * 4 >= stem.scratch_bytes(c0, c1, bool(bf16))
         tail = [outs[name].data_ptr(), m, h, w, 1e-3, stream]
         # a library without the symbol has the first interface: scale n only
         version = lib.stem_abi_version() if hasattr(lib, "stem_abi_version") else 1
-        if version in (2, 3):  # an instance a scale
+        if version in (2, 3, 4):  # an instance a scale
             fn.argtypes = [P, I] + [P] * 10 + [I, I, P, P, I, I, I, F, P]
             args = [x.data_ptr(), bf16, *(t.data_ptr() for t in terms), c0, c1,
                     scratch.data_ptr(), *tail]
@@ -506,6 +518,10 @@ def main(argv=None) -> int:
                     res[n]["max_diff"] = float((outs[n].float() - outs["stem"].float()).abs().max())
                     if n in ref_err:
                         res[n]["max_abs_err_vs_reference"] = ref_err[n]
+                    if dtype == torch.bfloat16 and scale != "n" and hasattr(
+                            libs[n], "stem_bf16_wide_blocks_per_sm"):
+                        res[n]["blocks_per_sm"] = libs[n].stem_bf16_wide_blocks_per_sm(
+                            *STEM_CHANNELS[scale])
                 print(json.dumps({"kernel": "stem", "scale": scale,
                                   "c0_c1": list(STEM_CHANNELS[scale]), "dtype": args.stem_dtype,
                                   "m": m, "imgsz": 640, "variants": res}), flush=True)
