@@ -185,7 +185,7 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
     assert "stem_bf16_wide_kernel" in rest and "_wide_kernel" not in src
     # the tool tells stem_forward's argument lists apart by this symbol
     assert 'extern "C" int stem_abi_version() { return 4; }' in rest
-    for name, subs in kernel_ab.ABLATIONS.items():
+    for name, subs in {**kernel_ab.ABLATIONS, **kernel_ab.F32_N_ABLATIONS}.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
     # and the f32 wide kernel, between its own two markers

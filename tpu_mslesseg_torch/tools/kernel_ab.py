@@ -23,8 +23,8 @@ largest difference from this tree's kernel.
 
 - ``--parent DIR``: also the kernels of another tree (an unpacked ``git
   archive`` of the parent commit), each through its own C interface.
-- ``--ablate``: also copies of this tree's stem (scale n's kernels, and
-  the wide kernel of ``--stem-dtype``), tile-LUT and blend kernels with one part of their
+- ``--ablate``: also copies of this tree's stem (scale n's kernel and the
+  wide kernel of ``--stem-dtype``), tile-LUT and blend kernels with one part of their
   work taken out (their outputs are wrong by design): what each part costs;
   and the tile-LUT kernel with equal values aggregated across a warp
   (``__match_any_sync``) before the histogram's atomics (the same LUTs by
@@ -32,8 +32,8 @@ largest difference from this tree's kernel.
 - ``--kernels``: which of the three sources to time (all by default).
 - ``--stem-scales``, ``--stem-dtype``: the stem instances to time (any of
   n, s, m, l, x) and their type (bfloat16 or float32). The ablations of
-  scale n's kernels are built and timed where n is asked for, those of the
-  wide kernel of the asked type (bf16 or f32) where a wider scale is.
+  scale n's kernel of the asked type are built and timed where n is asked
+  for, those of the wide kernel of that type where a wider scale is.
 
 The CLAHE kernels take less time than the host takes to launch them, so
 their lines also carry ``graph_ms``: the device time of a launch, from
@@ -114,8 +114,27 @@ ABLATIONS = {
     "stem_without_input_reads": _INPUT,
     "stem_without_output_writes": _STORE,
 }
-# the f32 wide kernel's parts; `h < 0` (h is an argument) never holds, and
-# the compiler cannot drop the code it guards
+# scale n's f32 kernel's parts (stem_fma_kernel); `h < 0` (h is an argument)
+# never holds, and the compiler cannot drop the code it guards. Without b0
+# the P1 patch is zeroed (one store a value), so that b1 reads finite values
+_N_B1_ACT = tuple((f"bn_silu(acc[4 * i{s}], mu1[4 * i{s}], sc1[4 * i{s}], be1[4 * i{s}])",
+                   f"acc[4 * i{s}] * sc1[4 * i{s}]") for s in ("", " + 1", " + 2", " + 3"))
+F32_N_ABLATIONS = {
+    "stem_f32_n_without_b0": ((
+        "  // stage 1: P1 rows 2*r0 - 1 + lr, columns 2*c0 - 1 + lc\n"
+        "  for (int i = tid; i < kP1H * kP1W; i += kThreads) {",
+        "  for (int i = tid; i < kC0 * kP1H * kP1W; i += kThreads) p1s[i] = 0.0f;\n"
+        "  for (int i = tid; i < kP1H * kP1W && h < 0; i += kThreads) {"),),
+    "stem_f32_n_without_b0_silu": ((
+        "inside ? bn_silu(acc, mu0[c], sc0[c], be0[c]) : 0.0f", "inside ? acc * sc0[c] : 0.0f"),),
+    "stem_f32_n_without_b1": ((
+        "  for (int c = 0; c < kC0; ++c) {\n#pragma unroll\n    for (int t = 0; t < kTaps; ++t) {",
+        "  for (int c = 0; c < kC0 && h < 0; ++c) {\n#pragma unroll\n"
+        "    for (int t = 0; t < kTaps; ++t) {"),),
+    "stem_f32_n_without_b1_silu": _N_B1_ACT,
+    "stem_f32_n_without_output_writes": (("q[i] = make_float4(", "if (h < 0) q[i] = make_float4("),),
+}
+# the f32 wide kernel's parts
 _W_B1_ACT = tuple((f"bn_silu(acc[i][4 * j + {k}], mu.{c}, sc.{c}, be.{c})",
                    f"acc[i][4 * j + {k}] * sc.{c}") for k, c in enumerate("xyzw"))
 _W_B0_ACT = (("dst[k * L::kP1H * L::kRS] = inside ? bn_silu(a[k], bn.x, bn.y, bn.z) : 0.0f;",
@@ -463,7 +482,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
 
-    # the wider scales' ablations rewrite the instance of the type they are timed in
+    # the ablations rewrite the instances of the type they are timed in
+    n_ablations = F32_N_ABLATIONS if args.stem_dtype == "float32" else ABLATIONS
     wide_ablations, wide_region = (
         (F32_WIDE_ABLATIONS, (STEM_F32_WIDE_BEGIN, STEM_F32_WIDE_END))
         if args.stem_dtype == "float32"
@@ -480,10 +500,10 @@ def main(argv=None) -> int:
                     srcs[f"{name}_parent"] = parent / srcs[name].name
         if args.ablate:
             for srcs, base, ablations, region in (
-                    (stem_src, "stem", ABLATIONS, (STEM_N_BEGIN, STEM_N_END)),
+                    (stem_src, "stem", n_ablations, (STEM_N_BEGIN, STEM_N_END)),
                     (stem_src, "stem", wide_ablations, wide_region),
                     (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS, None)):
-                if not srcs or (ablations is ABLATIONS and "n" not in scales) or (
+                if not srcs or (ablations is n_ablations and "n" not in scales) or (
                         ablations is wide_ablations and scales == ["n"]):
                     continue
                 head, body, tail = ablatable(base, srcs[base].read_text(), region)
@@ -505,7 +525,7 @@ def main(argv=None) -> int:
         dtype = getattr(torch, args.stem_dtype)
         for scale in scales if stem_src else ():
             # each ablation rewrites the instance it is timed with
-            ablated = ABLATIONS if scale == "n" else wide_ablations
+            ablated = n_ablations if scale == "n" else wide_ablations
             names = [n for n in stem_src if n in ("stem", "stem_parent") or n in ablated]
             weights = _stem_weights(gen, *STEM_CHANNELS[scale], dev)
             for m in (200, 600) if scale == "n" else (200,):
