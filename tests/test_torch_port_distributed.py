@@ -30,6 +30,7 @@ one card).
 """
 
 import datetime
+import importlib.util
 import multiprocessing
 import os
 import shutil
@@ -368,8 +369,10 @@ def test_one_rank_through_the_collectives_equals_the_plain_step_bit_for_bit(tree
 # the fold-parallel engine over ranks, and rank-0 writes
 # --------------------------------------------------------------------------
 
+# plots on: rank 0 draws every fold's figures, the curves from the
+# accumulator of the rank that validated the fold
 FOLDS_CFG = dict(epochs=2, batch_size=4, imgsz=S, max_fg=8, close_mosaic=1, save_period=1,
-                 plots=False, amp=False)
+                 plots=True, amp=False)
 FOLDS_RUN = dict(patients=["P1", "P2", "P30"], plano="axial", modalidades=["FLAIR"],
                  mejora="CLAHE", num_cortes=6, k_folds=2)
 
@@ -414,6 +417,9 @@ def test_two_ranks_train_the_folds_as_one_process_and_only_rank_zero_writes(tree
     assert outs[1]["writes"] == [] and outs[0]["writes"]
     files = lambda d: sorted(str(p.relative_to(d)) for p in d.rglob("*") if p.is_file())
     assert files(tmp_path / "ranks") == files(tmp_path / "alone")
+    if importlib.util.find_spec("matplotlib") is not None:
+        assert {"fold2/results.png", "fold2/labels.jpg", "fold2/BoxPR_curve.png",
+                "fold2/confusion_matrix.png"} <= set(files(tmp_path / "ranks"))
     for f in (1, 2):
         for name in ("last.pt", "best.pt", "epoch2.pt"):
             a = checkpoint.load_checkpoint(tmp_path / "alone" / f"fold{f}" / "weights" / name)

@@ -48,13 +48,14 @@ TRAIN_MODULES = ("train.assigner", "train.losses", "train.trainer", "train.check
                  "train.data", "train.augment", "train.validate", "train.engine",
                  "train.autobatch", "evalx.seg_map", "io.torch_pt", "model.import_pt",
                  "pipeline.yaml_out", "pipeline.stages.train", "train.fold_parallel",
-                 "train.engine_parallel", "core.distributed", "core.mesh")
+                 "train.engine_parallel", "core.distributed", "core.mesh", "train.plots")
 
 
 def test_the_training_modules_load_no_other_framework():
     """The training modules import torch, numpy and scipy: no jax, flax,
     optax or ml_dtypes, nothing of the JAX package, and no PyYAML (the card's
-    machine lists none: the port writes its YAML itself)."""
+    machine lists none: the port writes its YAML itself); matplotlib only
+    when a figure is drawn (``train/plots.py`` imports it lazily)."""
     mods = _port_modules()
     for name in TRAIN_MODULES:
         assert f"tpu_mslesseg_torch.{name}" in mods, name
@@ -62,7 +63,8 @@ def test_the_training_modules_load_no_other_framework():
         "import importlib, json, sys\n"
         f"for m in {TRAIN_MODULES!r}: importlib.import_module('tpu_mslesseg_torch.' + m)\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'yaml', 'tpu_mslesseg'))))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'yaml', 'tpu_mslesseg', "
+        "'matplotlib'))))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -8,8 +8,8 @@ wrapping the entry point the CLI calls (``ejecutar_flujo_train``, or
 
 * ``stages.train.main([... "--fold_test", "1"])`` at imgsz 64 in float32
   lays out the fold as the reference does (``args.yaml``, the dataset
-  YAML, ``results.csv``, ``weights/{best,last}.pt``, ``fitness.json``), and
-  a second run skips;
+  YAML, ``results.csv``, ``weights/{best,last}.pt``, ``fitness.json``, and
+  the training figures where matplotlib imports), and a second run skips;
 * the two YAML files parse (``yaml.safe_load``) to what the JAX package's
   writers give for the same inputs, as do values of every kind the writer
   takes (paths, lists of patient ids, None, booleans, 0.002, 1e-12);
@@ -25,6 +25,7 @@ wrapping the entry point the CLI calls (``ejecutar_flujo_train``, or
 
 import csv
 import functools
+import importlib.util
 import shutil
 
 import pytest
@@ -51,6 +52,16 @@ STAGE_ARGS = ["--plano", "axial", "--modalidad", "FLAIR", "--num_cortes", "6", "
 MODELO = dict(plano="axial", num_cortes=6, modalidad=["FLAIR"], k_folds=2, mejora="CLAHE")
 FOLD_FILES = {"args.yaml", "axial_FLAIR_CLAHE_6c_2folds.yaml", "results.csv",
               "weights/best.pt", "weights/last.pt", "weights/fitness.json"}
+# the training figures (``plots`` on by default), where matplotlib imports:
+# the parallel engine writes the results, labels, curves and confusion
+# matrices a fold, the sequential one the batch previews as well
+PARALLEL_FIGURES = {"results.png", "labels.jpg", "confusion_matrix.png",
+                    "confusion_matrix_normalized.png"} | {
+    f"{k}{c}.png" for k in ("Box", "Mask") for c in ("P_curve", "R_curve", "F1_curve", "PR_curve")}
+FIGURES = PARALLEL_FIGURES | {"train_batch0.jpg", "train_batch1.jpg", "train_batch2.jpg",
+                              "val_batch0_labels.jpg", "val_batch0_pred.jpg"}
+if importlib.util.find_spec("matplotlib") is None:
+    PARALLEL_FIGURES = FIGURES = set()
 
 
 def _files(d):
@@ -75,7 +86,7 @@ def stage_run(tmp_path_factory):
 
 def test_the_stage_lays_out_the_fold_as_the_reference(stage_run):
     root, fold, _, _ = stage_run
-    assert _files(fold) == FOLD_FILES
+    assert _files(fold) == FOLD_FILES | FIGURES
     assert fold == root / "trains" / "CLAHE" / f"FLAIR_6c_2folds_{EPOCHS}epochs" / "axial" / "fold1"
     with open(fold / "results.csv") as f:
         rows = list(csv.reader(f))
@@ -156,7 +167,7 @@ def test_entrenar_trains_each_fold_then_serves_from_best_pt(tmp_path):
         exp = "FLAIR_6c_2folds_1epochs"
         for k in (1, 2):
             fold = root / "trains" / "CLAHE" / exp / "axial" / f"fold{k}"
-            assert _files(fold) == FOLD_FILES
+            assert _files(fold) == FOLD_FILES | FIGURES
         served = sorted(p.relative_to(root / "pred_vols" / "CLAHE" / exp).as_posix()
                         for p in (root / "pred_vols").rglob("*.nii.gz"))
         assert served == ["fold1/P1/P1_axial.nii.gz", "fold1/P2/P2_axial.nii.gz",
@@ -215,7 +226,7 @@ def test_the_fold_parallel_default_raises_and_names_a7(tmp_path):
     assert len(calls) == 1 and calls[0]["device"] == torch.device("cpu")
     out = root / "trains" / "CLAHE" / "FLAIR_6c_2folds_1epochs" / "axial"
     for k in (1, 2):
-        assert _files(out / f"fold{k}") == FOLD_FILES
+        assert _files(out / f"fold{k}") == FOLD_FILES | PARALLEL_FIGURES
         assert tengine.entrenamiento_exitoso(out / f"fold{k}")
     assert _files(out / "_parallel") == {"last.pt"}
 

@@ -17,9 +17,9 @@ Over several ranks (``axis``, a ``core.mesh.DataAxis`` with
 trains on its share of every batch and validates its share of every
 validation batch, the step being one step over the whole batch; rank 0
 writes every file (the port's checkpoints are single-process writes, the
-reference's Orbax saves collective ones). Not ported: the training figures
-(``train/plots.py``, ROADMAP A8): with ``plots`` on, the engine says once
-that it writes none.
+reference's Orbax saves collective ones). With ``plots`` on, rank 0 then
+writes the reference's figures beside ``results.csv`` (``train/plots.py``),
+after every checkpoint: they take nothing from the training chain.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from tpu_mslesseg_torch.core.mesh import pad_to_multiple
 from tpu_mslesseg_torch.model.yolo11 import create_model
 from tpu_mslesseg_torch.pipeline import yaml_out
 from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
-from tpu_mslesseg_torch.train import augment, autobatch, checkpoint, trainer, validate
+from tpu_mslesseg_torch.train import augment, autobatch, checkpoint, plots, trainer, validate
 from tpu_mslesseg_torch.train import data as tdata
 from tpu_mslesseg_torch.train.losses import LossConfig
 from tpu_mslesseg_torch.train.trainer import TrainConfig, fitness
@@ -59,6 +59,36 @@ def _save(path, state_dict) -> None:
     """A checkpoint every rank holds, written by rank 0."""
     if distributed.is_main_process():
         checkpoint.save_checkpoint(path, state_dict)
+
+
+def _write_figures(out: Path, cfg: TrainConfig, train_set, acfg, val_acc, val_set, val_model,
+                   state) -> None:
+    """The reference's figures beside ``results.csv`` (rank 0):
+    ``results.png``, the last validation's curves and confusion matrices,
+    three augmented preview batches drawn from a generator of their own
+    (outside the training chain), ``labels.jpg`` and the validation preview
+    pair from the EMA weights."""
+    if plots._mpl() is None:
+        return
+    plots.plot_results(out / "results.csv")
+    if val_acc is not None:
+        plots.plot_curves(val_acc, out)
+        plots.plot_confusion(val_acc, out)
+    gen = torch.Generator().manual_seed(cfg.seed + 7919)
+    n, dd = min(cfg.batch_size, 9), train_set.as_dict()
+    previews = []
+    for _ in range(3):
+        idx = torch.randint(0, len(train_set), (n, 4), generator=gen)
+        previews.append(augment.make_batch(augment.draw_params(gen, acfg, n), dd, idx, acfg))
+    plots.plot_train_batches(previews, out)
+    plots.plot_labels(train_set, out)
+    if val_set is not None and len(val_set) > 0:
+        acfg_v = validate.val_aug_config(val_set.max_inst, cfg.imgsz)
+        nv = min(9, len(val_set))
+        params = augment.draw_params(torch.Generator().manual_seed(0), acfg_v, nv)
+        vb = augment.make_batch(params, val_set.as_dict(), torch.arange(nv)[:, None].repeat(1, 4),
+                                acfg_v)
+        plots.plot_val_batch(val_model, state.served_state_dict(), vb, out)
 
 
 def train_fold(
@@ -147,9 +177,7 @@ def train_fold(
     sched = trainer.lr_schedule(cfg, steps_per_epoch)
     sched_bias = trainer.lr_schedule(cfg, steps_per_epoch, start=cfg.warmup_bias_lr)
     dd = train_set.as_dict()
-    if cfg.plots:
-        logger.warning("⚠️ plots: las figuras de entrenamiento no están portadas (ROADMAP A8); "
-                       "no se escribe ninguna.")
+    val_acc = None  # the last validation's accumulator, for the curves
 
     # the best fitness lives beside the weights, so a resumed run never
     # demotes an earlier, better best.pt; validations since the last
@@ -175,10 +203,10 @@ def train_fold(
         train_losses = dict(zip(validate.LOSS_PARTS, torch.stack(parts).mean(0).tolist()))
 
         if val_set is not None and (epoch % val_every == 0 or epoch == cfg.epochs):
-            val_metrics, val_losses = validate.run_validation(
+            val_metrics, val_losses, val_acc = validate.run_validation(
                 val_model, state.served_state_dict(), val_set, loss_cfg,
                 batch_size=pad_to_multiple(min(cfg.batch_size, 16), n_data), imgsz=cfg.imgsz,
-                device=dev, axis=axis)
+                return_acc=True, device=dev, axis=axis)
         else:
             val_metrics, val_losses = {}, {}
 
@@ -220,6 +248,8 @@ def train_fold(
         # no validation ever ran and no earlier best exists: the final
         # weights are the best
         _save(weights / "best.pt", state.served_state_dict())
+    if cfg.plots and distributed.is_main_process():
+        _write_figures(out, cfg, train_set, acfg[True], val_acc, val_set, val_model, state)
 
     return {
         "best_fitness": best_fit,

@@ -27,9 +27,11 @@ The per-fold files are the sequential engine's (``train/engine.py``), so
 Over several ranks each fold slot's first rank validates its folds and
 sends rank 0 what it writes (``core.distributed.gather_to_main``): rank 0
 writes every file. The per-epoch records reach every rank, so every rank
-takes the same best and stopping decisions. The training figures
-(``train/plots.py``) are not ported (ROADMAP A8): with ``plots`` on, the
-engine says once that it writes none.
+takes the same best and stopping decisions. With ``plots`` on, rank 0 then
+writes each fold's figures (``train/plots.py``): ``results.png``,
+``labels.jpg`` of the fold's pool rows, and the curves and confusion
+matrices of its last validation, whose accumulator the fold's lead rank
+sends.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from tpu_mslesseg_torch.pipeline.logging_setup import get_logger
 from tpu_mslesseg_torch.pipeline.paciente import calcular_fold
 from tpu_mslesseg_torch.train import augment, autobatch, checkpoint, engine, fold_parallel
 from tpu_mslesseg_torch.train import data as tdata
-from tpu_mslesseg_torch.train import trainer, validate
+from tpu_mslesseg_torch.train import plots, trainer, validate
 from tpu_mslesseg_torch.train.losses import LOSS_PARTS, LossConfig
 from tpu_mslesseg_torch.train.trainer import TrainConfig, fitness
 
@@ -178,9 +180,7 @@ def train_folds_parallel(
     sched = trainer.lr_schedule(cfg, steps_per_epoch)
     sched_bias = trainer.lr_schedule(cfg, steps_per_epoch, start=cfg.warmup_bias_lr)
     dd = pool.as_dict()
-    if cfg.plots and distributed.is_main_process():
-        logger.warning("⚠️ plots: las figuras de entrenamiento no están portadas (ROADMAP A8); "
-                       "no se escribe ninguna.")
+    val_accs = {}  # fold -> its last validation's accumulator, for the curves
 
     def save(kind: str, folds, fn) -> None:
         """Rank 0 writes ``weights/<kind>.pt`` of `folds` from `fn(state)`."""
@@ -213,9 +213,10 @@ def train_folds_parallel(
                                     torch.stack(parts[f]).mean(0).tolist()))
             val_metrics, val_losses = {}, {}
             if do_val and val_sets[f] is not None:
-                val_metrics, val_losses = validate.run_validation(
+                val_metrics, val_losses, val_accs[f] = validate.run_validation(
                     val_model, st.served_state_dict(), val_sets[f], loss_cfg,
-                    batch_size=min(cfg.batch_size, 16), imgsz=cfg.imgsz, device=dev)
+                    batch_size=min(cfg.batch_size, 16), imgsz=cfg.imgsz, return_acc=True,
+                    device=dev)
             last = st.step - 1
             records[f] = (train_losses, val_metrics, val_losses,
                           (float(sched_bias(last)), float(sched(last))), val_sets[f] is not None)
@@ -270,6 +271,16 @@ def train_folds_parallel(
             fold_dirs[f] / "weights" / "best.pt")) for f in range(k_folds)])
     if any(never):
         save("best", [f for f in range(k_folds) if never[f]], lambda st: st.served_state_dict())
+    if cfg.plots:
+        got = distributed.gather_to_main(val_accs if lead else {})
+        if got is not None:
+            accs = {f: acc for part in got for f, acc in part.items()}
+            for f in range(k_folds):
+                plots.plot_results(fold_dirs[f] / "results.csv")
+                plots.plot_labels(pool, fold_dirs[f], rows=pools[f][: int(counts[f])])
+                if f in accs:
+                    plots.plot_curves(accs[f], fold_dirs[f])
+                    plots.plot_confusion(accs[f], fold_dirs[f])
     summary = {}
     for f in range(k_folds):
         summary[f"fold{f + 1}"] = {"fitness": max(best_fits[f], 0.0)}

@@ -80,7 +80,7 @@ class TrainConfig:
     imgsz: int = 640
     seed: int = 0
     max_fg: int = 64
-    # training figures: not ported (ROADMAP A8); the engine says so once
+    # the training figures beside results.csv (train/plots.py)
     plots: bool = True
     # bf16 compute, float32 parameters, optimizer state, statistics and losses
     amp: bool = True
