@@ -311,7 +311,7 @@ _SCALES = [("n", 32), ("s", 64), ("m", 128), ("l", 128), ("x", 192)]
 # (m, h, w): square sizes (200: 50 x 50 positions, ragged tiles) in both
 # types at every scale; then the wider instances of both types at the full
 # width of 640, and on a non-square input with an odd image count, ragged in
-# both directions
+# both directions; then scale n's f32 instance at both
 _STEM_CASES = [
     (dtype, (5, size, size), scale, c1)
     for scale, c1 in _SCALES for size in (64, 256, 96, 200)
@@ -324,6 +324,8 @@ _STEM_CASES = [
     (torch.bfloat16, (2, 640, 640), scale, c1) for scale, c1 in _SCALES if scale in "smx"
 ] + [
     (torch.bfloat16, (3, 96, 200), scale, c1) for scale, c1 in _SCALES if scale != "n"
+] + [
+    (torch.float32, shape, "n", 32) for shape in ((2, 640, 640), (3, 96, 200))
 ]
 
 

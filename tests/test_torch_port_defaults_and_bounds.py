@@ -176,24 +176,28 @@ def test_stem_work_in_f32_adds_both_convolutions_on_the_f32_pipe():
 def test_kernel_ab_ablations_still_match_the_stem_source():
     from tpu_mslesseg_torch.tools import kernel_ab
 
-    # the ablations rewrite scale n's kernels: the source between the two markers
+    # the bf16 ablations rewrite scale n's bf16 kernel: the source between the
+    # two markers
     text = (kernel_ab.CSRC / "stem.cu").read_text()
     head, src, rest = kernel_ab.ablatable("stem", text)
     assert head + src + rest == text
     assert head.endswith(kernel_ab.STEM_N_BEGIN) and rest.startswith(kernel_ab.STEM_N_END)
-    assert "stem_mma_kernel" in src and "stem_fma_kernel" in src
+    assert "stem_mma_kernel" in src and "stem_fma_kernel" not in text
     assert "stem_bf16_wide_kernel" in rest and "_wide_kernel" not in src
+    # the branch-free SiLU precedes every region: the f32 and bf16 wide kernels take it
+    assert "float silu_branch_free(" in head
     # the tool tells stem_forward's argument lists apart by this symbol
-    assert 'extern "C" int stem_abi_version() { return 4; }' in rest
-    for name, subs in {**kernel_ab.ABLATIONS, **kernel_ab.F32_N_ABLATIONS}.items():
+    assert 'extern "C" int stem_abi_version() { return 5; }' in rest
+    for name, subs in kernel_ab.ABLATIONS.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
-    # and the f32 wide kernel, between its own two markers
+    # and the f32 kernel (every scale's f32 instance), between its own two
+    # markers: the ablations of scale n's instance and of the wider ones
     region = (kernel_ab.STEM_F32_WIDE_BEGIN, kernel_ab.STEM_F32_WIDE_END)
     head, src, rest = kernel_ab.ablatable("stem", text, region)
     assert head + src + rest == text
     assert "stem_f32_wide_kernel" in src and "stem_bf16_wide_kernel" not in src
-    for name, subs in kernel_ab.F32_WIDE_ABLATIONS.items():
+    for name, subs in {**kernel_ab.F32_N_ABLATIONS, **kernel_ab.F32_WIDE_ABLATIONS}.items():
         for old, _ in subs:
             assert src.count(old) == 1, (name, old)
     # and the bf16 wide kernel, between its own two markers

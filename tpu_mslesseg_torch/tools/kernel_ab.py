@@ -23,8 +23,8 @@ largest difference from this tree's kernel.
 
 - ``--parent DIR``: also the kernels of another tree (an unpacked ``git
   archive`` of the parent commit), each through its own C interface.
-- ``--ablate``: also copies of this tree's stem (scale n's kernel and the
-  wide kernel of ``--stem-dtype``), tile-LUT and blend kernels with one part of their
+- ``--ablate``: also copies of this tree's stem (the instances of
+  ``--stem-dtype``: scale n's and the wide one's), tile-LUT and blend kernels with one part of their
   work taken out (their outputs are wrong by design): what each part costs;
   and the tile-LUT kernel with equal values aggregated across a warp
   (``__match_any_sync``) before the histogram's atomics (the same LUTs by
@@ -32,8 +32,9 @@ largest difference from this tree's kernel.
 - ``--kernels``: which of the three sources to time (all by default).
 - ``--stem-scales``, ``--stem-dtype``: the stem instances to time (any of
   n, s, m, l, x) and their type (bfloat16 or float32). The ablations of
-  scale n's kernel of the asked type are built and timed where n is asked
-  for, those of the wide kernel of that type where a wider scale is.
+  scale n's instance of the asked type are built and timed where n is asked
+  for, those of the wide instance of that type where a wider scale is (in
+  f32 both rewrite the one f32 kernel).
 
 The CLAHE kernels take less time than the host takes to launch them, so
 their lines also carry ``graph_ms``: the device time of a launch, from
@@ -114,43 +115,45 @@ ABLATIONS = {
     "stem_without_input_reads": _INPUT,
     "stem_without_output_writes": _STORE,
 }
-# scale n's f32 kernel's parts (stem_fma_kernel); `h < 0` (h is an argument)
-# never holds, and the compiler cannot drop the code it guards. Without b0
-# the P1 patch is zeroed (one store a value), so that b1 reads finite values
-_N_B1_ACT = tuple((f"bn_silu(acc[4 * i{s}], mu1[4 * i{s}], sc1[4 * i{s}], be1[4 * i{s}])",
-                   f"acc[4 * i{s}] * sc1[4 * i{s}]") for s in ("", " + 1", " + 2", " + 3"))
-F32_N_ABLATIONS = {
-    "stem_f32_n_without_b0": ((
-        "  // stage 1: P1 rows 2*r0 - 1 + lr, columns 2*c0 - 1 + lc\n"
-        "  for (int i = tid; i < kP1H * kP1W; i += kThreads) {",
-        "  for (int i = tid; i < kC0 * kP1H * kP1W; i += kThreads) p1s[i] = 0.0f;\n"
-        "  for (int i = tid; i < kP1H * kP1W && h < 0; i += kThreads) {"),),
-    "stem_f32_n_without_b0_silu": ((
-        "inside ? bn_silu(acc, mu0[c], sc0[c], be0[c]) : 0.0f", "inside ? acc * sc0[c] : 0.0f"),),
-    "stem_f32_n_without_b1": ((
-        "  for (int c = 0; c < kC0; ++c) {\n#pragma unroll\n    for (int t = 0; t < kTaps; ++t) {",
-        "  for (int c = 0; c < kC0 && h < 0; ++c) {\n#pragma unroll\n"
-        "    for (int t = 0; t < kTaps; ++t) {"),),
-    "stem_f32_n_without_b1_silu": _N_B1_ACT,
-    "stem_f32_n_without_output_writes": (("q[i] = make_float4(", "if (h < 0) q[i] = make_float4("),),
-}
-# the f32 wide kernel's parts
+# the f32 kernel's parts (stem_f32_wide_kernel, every scale); `h < 0` (h is
+# an argument) never holds, and the compiler cannot drop the code it guards
+_F32_B1 = (("for (int cl = 0; cl < kFGroup; ++cl) {",
+            "for (int cl = 0; cl < kFGroup && h < 0; ++cl) {"),)
+_F32_W1_COPIES = (("cp_async16(dst + 4 * i,", "if (h < 0) cp_async16(dst + 4 * i,"),)
 _W_B1_ACT = tuple((f"bn_silu(acc[i][4 * j + {k}], mu.{c}, sc.{c}, be.{c})",
                    f"acc[i][4 * j + {k}] * sc.{c}") for k, c in enumerate("xyzw"))
 _W_B0_ACT = (("dst[k * L::kP1H * L::kRS] = inside ? bn_silu(a[k], bn.x, bn.y, bn.z) : 0.0f;",
               "dst[k * L::kP1H * L::kRS] = inside ? a[k] * bn.y : 0.0f;"),)
 F32_WIDE_ABLATIONS = {
     "stem_f32_wide_without_b0": ((
-        "for (int i = tid; i < 4 * kPatch; i += kThreads) {",
-        "for (int i = tid; i < 4 * kPatch && h < 0; i += kThreads) {"),),
+        "for (int i = tid; i < kFGroup / L::kB0 * kPatch; i += kThreads) {",
+        "for (int i = tid; i < kFGroup / L::kB0 * kPatch && h < 0; i += kThreads) {"),),
     "stem_f32_wide_without_b0_silu": _W_B0_ACT,
-    "stem_f32_wide_without_b1": ((
-        "for (int cl = 0; cl < kFGroup; ++cl) {", "for (int cl = 0; cl < kFGroup && h < 0; ++cl) {"),),
+    "stem_f32_wide_without_b1": _F32_B1,
     "stem_f32_wide_without_b1_silu": _W_B1_ACT,
-    "stem_f32_wide_without_w1_copies": ((
-        "cp_async16(dst + 4 * i,", "if (h < 0) cp_async16(dst + 4 * i,"),),
+    "stem_f32_wide_without_w1_copies": _F32_W1_COPIES,
     "stem_f32_wide_without_output_writes": ((
         "*reinterpret_cast<float4*>(dst + o) =", "if (h < 0) *reinterpret_cast<float4*>(dst + o) ="),),
+}
+# scale n's instance: its activations are the branch-free ones, and without
+# b0 the P1 slab is zeroed (one store a value), so that b1 reads finite values
+F32_N_ABLATIONS = {
+    "stem_f32_n_without_b0": ((
+        "for (int i = tid; i < kFGroup / L::kB0 * kPatch; i += kThreads) {",
+        "for (int i = tid; i < L::kP1; i += kThreads) p1s[i] = 0.0f;\n"
+        "    for (int i = tid; i < kFGroup / L::kB0 * kPatch && h < 0; i += kThreads) {"),),
+    "stem_f32_n_without_b0_silu": ((
+        "t0[k] = silu_branch_free(y0[k], slow);", "t0[k] = y0[k];"),),
+    "stem_f32_n_without_b1": _F32_B1,
+    "stem_f32_n_without_b1_silu": ((
+        "v[e] = silu_branch_free(z[e], slow);", "v[e] = z[e];"),),
+    "stem_f32_n_without_w1_copies": _F32_W1_COPIES,
+    "stem_f32_n_without_input_reads": ((
+        "cp_async16_zfill(xs + 4 * i, in ? xm + static_cast<size_t>(r) * w + c : xm, in);",
+        "cp_async16_zfill(xs + 4 * i, xm, false);"),),
+    "stem_f32_n_without_output_writes": ((
+        "*reinterpret_cast<float4*>(dst + (j * L::kNO + og) * 4) =",
+        "if (h < 0) *reinterpret_cast<float4*>(dst + (j * L::kNO + og) * 4) ="),),
 }
 # the bf16 wide kernel's parts. Each stand-in keeps the values finite (zeroed
 # P1 slabs and w1 stages, bounded stand-in products), so that no ablation sends
@@ -313,15 +316,16 @@ def _stem_runs(libs, x, weights, stream):
     for name, lib in libs.items():
         fn = lib.stem_forward
         outs[name] = torch.empty((m, h // 4, w // 4, c1), dtype=x.dtype, device=x.device)
-        # the scratch where a wide instance lays its weights out: at most 9 c0
+        # the scratch where an instance lays its weights out: at most 9 c0
         # c1 f32 (version 2: bf16 fragments; 3: also f32 w1; 4: the bf16
-        # fragments and 12 c0 + 4 c1 words of the other parameters)
+        # fragments and 12 c0 + 4 c1 words of the other parameters; 5: f32 w1
+        # at scale n as well)
         scratch = torch.empty(9 * c0 * c1, dtype=torch.float32, device=x.device)
         assert scratch.numel() * 4 >= stem.scratch_bytes(c0, c1, bool(bf16))
         tail = [outs[name].data_ptr(), m, h, w, 1e-3, stream]
         # a library without the symbol has the first interface: scale n only
         version = lib.stem_abi_version() if hasattr(lib, "stem_abi_version") else 1
-        if version in (2, 3, 4):  # an instance a scale
+        if version in (2, 3, 4, 5):  # an instance a scale
             fn.argtypes = [P, I] + [P] * 10 + [I, I, P, P, I, I, I, F, P]
             args = [x.data_ptr(), bf16, *(t.data_ptr() for t in terms), c0, c1,
                     scratch.data_ptr(), *tail]
@@ -482,12 +486,14 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
 
-    # the ablations rewrite the instances of the type they are timed in
-    n_ablations = F32_N_ABLATIONS if args.stem_dtype == "float32" else ABLATIONS
-    wide_ablations, wide_region = (
-        (F32_WIDE_ABLATIONS, (STEM_F32_WIDE_BEGIN, STEM_F32_WIDE_END))
-        if args.stem_dtype == "float32"
-        else (BF16_WIDE_ABLATIONS, (STEM_BF16_WIDE_BEGIN, STEM_BF16_WIDE_END)))
+    # the ablations rewrite the instances of the type they are timed in: in
+    # f32 one kernel serves every scale
+    f32_region = (STEM_F32_WIDE_BEGIN, STEM_F32_WIDE_END)
+    n_ablations, n_region, wide_ablations, wide_region = (
+        (F32_N_ABLATIONS, f32_region, F32_WIDE_ABLATIONS, f32_region)
+        if args.stem_dtype == "float32" else
+        (ABLATIONS, (STEM_N_BEGIN, STEM_N_END), BF16_WIDE_ABLATIONS,
+         (STEM_BF16_WIDE_BEGIN, STEM_BF16_WIDE_END)))
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
         tmp = Path(tmp)
         stem_src = {"stem": CSRC / "stem.cu"} if "stem" in which else {}
@@ -500,7 +506,7 @@ def main(argv=None) -> int:
                     srcs[f"{name}_parent"] = parent / srcs[name].name
         if args.ablate:
             for srcs, base, ablations, region in (
-                    (stem_src, "stem", n_ablations, (STEM_N_BEGIN, STEM_N_END)),
+                    (stem_src, "stem", n_ablations, n_region),
                     (stem_src, "stem", wide_ablations, wide_region),
                     (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS, None)):
                 if not srcs or (ablations is n_ablations and "n" not in scales) or (
