@@ -102,8 +102,9 @@ pipeline's log lines):
    phase 9's volumes (bf16 results depend on the batch: the chain serves 50
    slices a call, ``rapido`` 200 a plane) and both phases' stage timings.
 
-11. stem_activation_check, then stem_kernel (scales n, s, m, l, x): the bf16
-   wide kernel's branch-free SiLU against ``y / (1 + expf(-y))`` on all 2^32
+11. stem_activation_check, then stem_kernel (scales n, s, m, l, x): the
+   branch-free SiLU (of the f32 kernel at n and of the bf16 wide kernel)
+   against ``y / (1 + expf(-y))`` on all 2^32
    f32 inputs (no mismatch allowed); the fused stem's instance of every
    published scale, (c0, c1) = (16, 32), (32, 64), (64, 128) for m and for
    l, (96, 192), against
@@ -113,12 +114,12 @@ pipeline's log lines):
    version timed in both types, and each instance's bytes, operations,
    bound and share of it (``bound`` lines; in f32 b0 and b1 both on the
    f32 pipe).
-12. lote_scale_s, lote_scale_m: ``ConsensusPredictor.lote`` at scale s
-   (bf16) and at scale m (f32), 640, GC, two of phase 2's patients, with
-   ``TPU_MSLESSEG_PALLAS_STEM`` on: the predictor is built with the stem's
-   weights, the stem and union kernels launch, the counts cover the
-   volumes, and the consensus agrees with the same call with the stem off
-   (Dice at least 0.99).
+12. lote_scale_s, lote_scale_m, lote_scale_n: ``ConsensusPredictor.lote``
+   at scale s (bf16), at scale m (f32) and at scale n (f32), 640, GC, two of
+   phase 2's patients, with ``TPU_MSLESSEG_PALLAS_STEM`` on: the predictor
+   is built with the stem's weights, the stem kernel launches once and the
+   union kernel launches, the counts cover the volumes, and the consensus
+   agrees with the same call with the stem off (Dice at least 0.99).
 13. train: the train step at full width. YOLO11n-seg at its published
    widths, imgsz 640, bf16 compute (the reference's ``amp``), batch 16 (``accumulate_steps``
    4), ``max_fg`` 64, 64 instance slots with one to five valid, seeded
@@ -153,8 +154,10 @@ pipeline's log lines):
    step, validation, ``results.csv``, checkpoints), then ``rapido`` serves
    every patient from the fold's ``best.pt``. Checks each fold's files
    (``args.yaml``, the dataset YAML, ``results.csv`` with three rows of
-   finite losses, ``best.pt``, ``last.pt``, ``fitness.json``), the cadence
-   of every micro-step, that ``best.pt`` serves through ``SlicePredictor``
+   finite losses, ``best.pt``, ``last.pt``, ``fitness.json``, and the
+   reference's training figures where matplotlib imports, none where it
+   does not: a ``train_figures_15`` line says which), the cadence of every
+   micro-step, that ``best.pt`` serves through ``SlicePredictor``
    with the fused stem, every volume/JSON pair of the serve, that the serve
    launched all four kernels, and that the same command again trains
    nothing. Prints the batch before and after the dataset rule, the probe's
@@ -170,7 +173,7 @@ pipeline's log lines):
    patient from its fold's ``best.pt``. Checks that ``stage_timer`` shows
    ``train_paralelo`` and no ``train_fold<k>``, the stacked
    ``_parallel/last.pt`` and every fold's files (three ``results.csv`` rows
-   of finite losses), every micro-step's cadence and finite losses, that
+   of finite losses; the figures as in phase 15, ``train_figures_16``), every micro-step's cadence and finite losses, that
    the folds took turns, that the pool and validation sets launched
    CLAHE's kernels and the serve all four, each kernel against its plain
    version on fold 1's served weights and a patient's slices (NMS at the
@@ -212,6 +215,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import importlib.util
 import json
 import os
 import shutil
@@ -245,6 +249,14 @@ ATOL, RTOL = 1e-4, 1e-5  # the FMA union kernel (f32 coefficients)
 STEM_TOL = 2e-5
 NEAR_THRESHOLD = 1e-3
 MIN_DICE = 0.99
+# the training figures (``train/plots.py``) a fold's directory holds where
+# matplotlib imports: fold by fold (phase 15) and every fold at once (phase 16)
+PARALLEL_FIGURES = {"results.png", "labels.jpg", "confusion_matrix.png",
+                    "confusion_matrix_normalized.png"} | {
+    f"{k}{c}.png" for k in ("Box", "Mask") for c in ("P_curve", "R_curve", "F1_curve", "PR_curve")}
+SEQUENTIAL_FIGURES = PARALLEL_FIGURES | {
+    "train_batch0.jpg", "train_batch1.jpg", "train_batch2.jpg", "val_batch0_labels.jpg",
+    "val_batch0_pred.jpg"}
 MIN_CHAIN_RAPIDO_DICE = 0.9  # the same patient through the chain and through rapido
 STEM_SCALES = ("n", "s", "m", "l", "x")  # every instance of the fused stem
 STEM_M = 200  # images a launch there: one plane of a served group
@@ -1001,15 +1013,16 @@ def phase_cli_default(torch, P, chain_root: Path, root: Path, chain: dict, count
 def phase_stem_scales(torch, P, gen, dev, card) -> dict:
     """Phase 11: the fused stem's instances of scales n, s, m, l and x against
     ``model.0``/``model.1`` (BN statistics perturbed) at 200 images of 640,
-    in f32 and in bf16, each instance's time and bound; first the bf16 wide
-    kernel's branch-free SiLU against the plain one on every f32 input.
+    in f32 and in bf16, each instance's time and bound; first the branch-free
+    SiLU (the f32 kernel's at n, the bf16 wide kernel's) against the plain
+    one on every f32 input.
     Returns {scale: the bf16 row, with the f32 instance's ms, plain ms, bound
     and share of it}."""
     bad = P.stem.bf16_activation_mismatches(dev)
     emit({"phase": "stem_activation_check", "inputs": 2 ** 32, "mismatches": bad,
           "compared": "silu_branch_free (with its fallback) against y / (1 + expf(-y)), bits"})
     if bad:
-        raise AssertionError(f"stem: the bf16 wide kernel's SiLU differs on {bad} f32 inputs")
+        raise AssertionError(f"stem: the branch-free SiLU differs on {bad} f32 inputs")
     x32 = torch.rand((STEM_M, IMGSZ, IMGSZ), generator=gen).to(dev)
     rows = {}
     for scale in STEM_SCALES:
@@ -1066,10 +1079,10 @@ def phase_stem_scales(torch, P, gen, dev, card) -> dict:
 
 
 def phase_lote_wide(torch, P, slices, idx, gts, counters, dev, scale: str, dtype) -> dict:
-    """Phase 12: one served ``ConsensusPredictor.lote`` at a wider `scale` in
-    `dtype` (640, GC, two patients) with the fused stem switched on: the
-    predictor is built with the stem's weights, the stem kernel launches,
-    and the result is held against the same call with the stem off."""
+    """Phase 12: one served ``ConsensusPredictor.lote`` at `scale` in `dtype`
+    (640, GC, two patients) with the fused stem switched on: the predictor
+    is built with the stem's weights, the stem kernel launches once, and the
+    result is held against the same call with the stem off."""
     model, _ = P.create_model(nc=1, scale=scale, dtype=dtype)
     variables = P.init_variables(model, seed=9)
     for i in range(len(P.STRIDES)):  # no class prior: NMS keeps detections
@@ -1092,7 +1105,7 @@ def phase_lote_wide(torch, P, slices, idx, gts, counters, dev, scale: str, dtype
     torch.cuda.synchronize()
     lote_s = time.perf_counter() - t0
     launches = read_launches(counters)
-    if launches["stem"] < 1 or launches["mask_union"] < 1:
+    if launches["stem"] != 1 or launches["mask_union"] < 1:
         raise AssertionError(f"{what}: launches {launches}")
     _, off_cons, off_vols = cp_off.lote(sl, ix, gts[:n_pat])
     torch.cuda.synchronize()
@@ -1111,6 +1124,16 @@ def phase_lote_wide(torch, P, slices, idx, gts, counters, dev, scale: str, dtype
     if dices["consenso"] < MIN_DICE:
         raise AssertionError(f"{what}, stem on vs off: consensus Dice {dices} below {MIN_DICE}")
     return launches
+
+
+def expected_figures(phase: int, figures: set) -> set:
+    """The figures a fold holds: `figures` where matplotlib imports, none
+    where it does not (the engines then warn once and write none); prints
+    which of the two this phase expects."""
+    have = importlib.util.find_spec("matplotlib") is not None
+    emit({"phase": f"train_figures_{phase}", "matplotlib": have,
+          "expected": "the reference's figures" if have else "the base set: no figures"})
+    return figures if have else set()
 
 
 def train_state_probe(torch, state) -> dict:
@@ -1394,6 +1417,7 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
 
         # every fold: its artifacts, three epochs of finite losses, the cadence
         folds = sorted(set(CLI_PATIENTS.values()))
+        fold_figures = expected_figures(15, SEQUENTIAL_FIGURES)
         if len(rec["folds"]) != len(folds):
             raise AssertionError(f"{len(rec['folds'])} folds trained, not {len(folds)}")
         epoch_s, rows_by_fold = {}, {}
@@ -1402,7 +1426,7 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
             fold = cfg_k.fold_dir
             have = {str(p.relative_to(fold)) for p in fold.rglob("*") if p.is_file()}
             want = {"args.yaml", f"{modelo.model_string}.yaml", "results.csv", "weights/best.pt",
-                    "weights/last.pt", "weights/fitness.json"}
+                    "weights/last.pt", "weights/fitness.json"} | fold_figures
             if have != want:
                 raise AssertionError(f"fold {k}: files {sorted(have)}, want {sorted(want)}")
             with open(fold / "results.csv") as f:
@@ -1598,11 +1622,12 @@ def phase_train_parallel_cli(torch, P, root: Path, counters, dev, card, sequenti
                                 root=root).output_dir
         if not (out_dir / "_parallel" / "last.pt").is_file():
             raise AssertionError("no stacked resume point _parallel/last.pt")
+        fold_figures = expected_figures(16, PARALLEL_FIGURES)
         for k in folds:
             fold = out_dir / f"fold{k}"
             have = {str(p.relative_to(fold)) for p in fold.rglob("*") if p.is_file()}
             want = {"args.yaml", f"{modelo.model_string}.yaml", "results.csv", "weights/best.pt",
-                    "weights/last.pt", "weights/fitness.json"}
+                    "weights/last.pt", "weights/fitness.json"} | fold_figures
             if have != want:
                 raise AssertionError(f"fold {k}: files {sorted(have)}, want {sorted(want)}")
             with open(fold / "results.csv") as f:
@@ -2375,7 +2400,7 @@ def main() -> int:
                                     chain, counters, dev)
     torch.cuda.empty_cache()
 
-    # ---- phases 11 and 12: the stem at every scale, served at s and m ------
+    # ---- phases 11 and 12: the stem at every scale, served at s, m and n ---
     stem_scales = phase_stem_scales(torch, P, gen, dev, card)
     for row in stem_scales.values():
         max_err["stem"] = max(max_err["stem"], row["max_abs_err"], row["f32_max_abs_err"])
@@ -2383,6 +2408,9 @@ def main() -> int:
                                        torch.bfloat16)
     torch.cuda.empty_cache()
     scale_m_launches = phase_lote_wide(torch, P, slices, idx, gts, counters, dev, "m",
+                                       torch.float32)
+    torch.cuda.empty_cache()
+    scale_n_launches = phase_lote_wide(torch, P, slices, idx, gts, counters, dev, "n",
                                        torch.float32)
     torch.cuda.empty_cache()
 
@@ -2414,6 +2442,7 @@ def main() -> int:
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
                "cli_chain": chain["launches"], "cli_default": default["launches"],
                "lote_scale_s": scale_s_launches, "lote_scale_m_f32": scale_m_launches,
+               "lote_scale_n_f32": scale_n_launches,
                "train": train_launches,
                "train_cli_then_serve": train_cli["launches"],
                "train_paralelo": train_par["launches"]}
