@@ -188,6 +188,29 @@ pipeline's log lines):
    same state on the same batch, bit for bit, under the deterministic
    modes (the plain step twice first). Two ranks cannot run on one card:
    the CPU tests run them over ``gloo``.
+18. demo: the demo on the card. Synthetic 182x218x182 P18 and P39 (phase
+   9's lesion box) in a temporary directory; ``configure_logging_demo()``,
+   then ``ejecutar_demo_paciente(pid, mejora, entrenar=True, epochs=3)`` for
+   both ``DEMO_CASES`` (the CLI's patient mode at full width: YOLO11n-seg,
+   640, bf16, the stem on, ``k_folds`` 5, FLAIR, axial, P50: stage 1, the
+   patient's fold trained with ``batch -1``, stage 3 through the stage
+   chain, then the GIF and the figure). Checks each fold's files, the
+   patient's prediction PNGs, volume and JSON, ``demo.log``, that each
+   case's stage 3 launched the union kernel and the stem (a
+   ``demo_kernels`` line) and that stage 1 and 3 wrote through the native
+   PNG writer; the stored masks against a direct ``SlicePredictor`` call
+   (equal), the stem and the union against their plain versions on that
+   call's tensors (the union at NMS confidence 0.001, its plain masks equal
+   but within 1e-3 of the threshold), the plain stem and union end to end
+   by Dice (at least 0.99); the GIF's frames against the predictions, the
+   figure's slice from ``seleccionar_mejor_corte``, and the files or the
+   one warning a case as imageio and matplotlib import (a ``viz_18`` line
+   says which). Then capacity mode (``entrenar_capacidad.main``, 3 epochs,
+   batch 8: finite losses, ``best.pt``, finite metrics, the evaluation's
+   union and stem launches, the micro-step's ms), the extras
+   (``analizar_resultados`` on the demo's ``results/``,
+   ``componer_resultados`` on phase 9's) and the native writer (built,
+   100 PNGs of 218x182 with ``encode_gray``'s bytes, host seconds of each).
 
 An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
 with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
@@ -198,7 +221,8 @@ as a one-level flip).
 Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
 the CLAHE kernels' background-heavy ms, the bound and what bounds it;
 ``launches`` counts phase 6's fold, which those times belong to,
-``launches_by_path`` each driven path's (``train_paralelo`` phase 16's),
+``launches_by_path`` each driven path's (``train_paralelo`` phase 16's,
+``demo`` and ``capacidad`` phase 18's),
 and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
 patient's three launches of 50 images; the stem's ``scales`` holds phase
@@ -1796,6 +1820,284 @@ def phase_nccl_one_rank(torch, P, dev, card) -> None:
                   "tests' (tests/test_torch_port_distributed.py, gloo)", **card})
 
 
+# ---- phase 18: the demo, capacity mode, the extras, the native writer ------
+DEMO_EPOCHS = 3  # epochs a demo fold and of the capacity run
+DEMO_FOLD = {"P39": 4, "P18": 2}  # the demo patients' folds of 5
+NATIVE_PNGS = 100  # stage-1-sized PNGs the native writer and encode_gray each write
+CHECK_CONF = 0.001  # NMS confidence of the kernel checks (the validation's, as phase 16)
+
+
+def write_demo_tree(root: Path, P) -> Path:
+    """The demo subset's stand-in: P18 and P39 as synthetic 182x218x182
+    FLAIR and mask volumes (phase 9's writer and lesion box). Returns the
+    dataset dir."""
+    ds = root / "MSLesSeg-Dataset" / "train"
+    for pid in DEMO_FOLD:
+        vol, gt = patient_volume(pid, CLI_LESION)
+        P.nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
+        P.nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
+    return ds
+
+
+def importable(name: str) -> bool:
+    return importlib.util.find_spec(name) is not None
+
+
+def demo_stage3_checks(torch, P, pred, u8, stored) -> dict:
+    """One demo patient's stage-3 masks (`stored`, from its PNGs) against a
+    direct `pred` call on the same enhanced slices `u8` (kernels on: equal);
+    each kernel against its plain version on that call's own tensors, the
+    union's with NMS at ``CHECK_CONF`` so that it holds kept boxes after three
+    epochs of training (within its bound, and the masks of the plain union
+    differ only within ``NEAR_THRESHOLD`` of the threshold); the whole plain
+    path (plain stem, plain union) at the served confidence by its Dice.
+    Raises where one fails."""
+    smodel, out = pred.model, {}
+    masks = pred(u8)
+    if not np.array_equal(stored, masks.cpu().numpy()):
+        raise AssertionError("stage-3 masks != a direct SlicePredictor call")
+    x = pred.lb.apply(P.geometry.to_png_space_batch(u8).to(torch.float32) / 255.0).to(smodel.dtype)
+    got, want = P.stem.stem_apply(smodel, pred._stem_w, x), P.stem.stem_reference(smodel, pred._stem_w, x)
+    torch.cuda.synchronize()
+    out["stem"] = stem_errors(torch, P.stem, smodel, pred._stem_w, x, got, want)
+    del got, want
+    rec = Recorder(P.mu.mask_union_logits_batch)
+    with torch.inference_mode():
+        P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, CHECK_CONF, pred.iou,
+                           pred.max_det, mask_union=rec, stem_w=pred._stem_w)
+    call, got = rec.last[:5], rec.last[5]
+    want = P.mu.mask_union_logits_ref(*call)
+    torch.cuda.synchronize()
+    out["mask_union"] = check_union(torch, P.mu, call, got, want)
+    out["mask_union"]["conf"] = CHECK_CONF
+    out["mask_union"]["kept_per_image"] = float(call[3].sum()) / call[3].shape[0]
+    ys, xs = P.predictor.proto_grid(pred.lb, got.device)
+    k_logits = P.predictor._bilinear_sample(got, ys, xs)
+    p_logits = P.predictor._bilinear_sample(want, ys, xs)
+    differ = (k_logits > pred.mask_thresh) != (p_logits > pred.mask_thresh)
+    worst = float((p_logits - pred.mask_thresh).abs()[differ].max()) if bool(differ.any()) else 0.0
+    out["mask_union"].update({"pixels_differing": int(differ.sum()),
+                              "worst_plain_logit_from_threshold": worst})
+    if worst >= NEAR_THRESHOLD:
+        raise AssertionError(f"plain-union masks differ away from the threshold ({worst})")
+    with torch.inference_mode():
+        union = P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf,
+                                   pred.iou, pred.max_det, mask_union=P.mu.mask_union_logits_ref)
+    plain = P.geometry.from_png_space_batch(P.predictor._bilinear_sample(union, ys, xs)
+                                            > pred.mask_thresh)
+    out["plain_path"] = {"dice_vs_stage3": dice(plain, masks),
+                         "pixels_differing": int((plain != masks).sum())}
+    if out["plain_path"]["dice_vs_stage3"] < MIN_DICE:
+        raise AssertionError(f"plain stem and union vs stage 3: {out['plain_path']} below {MIN_DICE}")
+    out["positive_pixels"] = int(masks.sum())
+    return out
+
+
+def phase_demo(torch, P, root: Path, counters, dev, card, global_rows) -> dict:
+    """Phase 18: the demo's two cases through ``ejecutar_demo_paciente(...,
+    entrenar=True, epochs=3)`` (the CLI's patient mode: stage 1, one fold
+    trained, stage 3 through the stage chain, then the GIF and the figure),
+    the capacity mode, the extras and the native PNG writer."""
+    import logging
+
+    t_phase = time.perf_counter()
+    ds = write_demo_tree(root, P)
+    setup_s = time.perf_counter() - t_phase
+    stage3, batches, rec_s = [], [], {}
+
+    def serve(*a, **kw):
+        before = read_launches(counters)
+        out = real_serve(*a, **kw)
+        torch.cuda.synchronize()
+        after = read_launches(counters)
+        stage3.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def native_batch(paths, imgs, *a, **kw):
+        batches.append(len(paths))
+        return real_batch(paths, imgs, *a, **kw)
+
+    real_serve, real_batch = P.gen.ejecutar_predicciones_pipeline, P.native.write_gray_png_batch
+    viz = {"imageio": importable("imageio"), "matplotlib": importable("matplotlib")}
+    warned = []  # the demo's warnings, in order
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warned.append(record.getMessage()) \
+        if record.levelno == logging.WARNING else None  # not the HEADER level above it
+    demo_logger = logging.getLogger("ejecutar_demo")
+    cwd = os.getcwd()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(switched(P.gen, "ejecutar_predicciones_pipeline", serve))
+        stack.enter_context(switched(P.native, "write_gray_png_batch", native_batch))
+        old_cache = os.environ.get("TPU_MSLESSEG_AUTOBATCH_CACHE")
+        os.environ["TPU_MSLESSEG_AUTOBATCH_CACHE"] = str(root / "autobatch.json")
+        stack.callback(lambda: os.environ.pop("TPU_MSLESSEG_AUTOBATCH_CACHE") if old_cache is None
+                       else os.environ.update(TPU_MSLESSEG_AUTOBATCH_CACHE=old_cache))
+        os.chdir(root)
+        stack.callback(os.chdir, cwd)
+        stack.callback(P.logging_setup.configure_logging, log_file=None)
+        P.logging_setup.configure_logging(log_file=None)
+        P.logging_setup.configure_logging_demo()
+        demo_logger.addHandler(handler)
+        stack.callback(demo_logger.removeHandler, handler)
+        zero_launches(counters)
+        for case in P.demo.DEMO_CASES:
+            n_warn = len(warned)
+            t0 = time.perf_counter()
+            P.demo.ejecutar_demo_paciente(case["paciente_id"], case["mejora"], True, DEMO_EPOCHS)
+            torch.cuda.synchronize()
+            rec_s[case["paciente_id"]] = {"s": time.perf_counter() - t0,
+                                          "warnings": warned[n_warn:]}
+        launches = read_launches(counters)
+    if not (root / "demo.log").is_file():
+        raise AssertionError("configure_logging_demo wrote no demo.log")
+    if len(stage3) != len(P.demo.DEMO_CASES):
+        raise AssertionError(f"stage 3 ran {len(stage3)} times for {len(P.demo.DEMO_CASES)} cases")
+    for k in ("mask_union", "stem"):
+        if any(s[k] < 1 for s in stage3):
+            raise AssertionError(f"a demo case's stage 3 did not launch the {k} kernel: {stage3}")
+    if not batches:
+        raise AssertionError("the demo wrote no PNG batch through the native writer")
+    emit({"phase": "demo_kernels", "launches": launches,
+          "stage3_launches": {c["paciente_id"]: s for c, s in zip(P.demo.DEMO_CASES, stage3)},
+          "native_png_batches": len(batches), "native_pngs": sum(batches)})
+
+    # each case: the fold's files, stage 3's artifacts, the kernels, the viz
+    smodel, _, imgsz = P.create_model_from_env()
+    cases = {}
+    for case in P.demo.DEMO_CASES:
+        pid, mejora = case["paciente_id"], case["mejora"]
+        modelo = P.Modelo(plano="axial", num_cortes="P50", modalidad=["FLAIR"], k_folds=5,
+                          mejora=mejora)
+        cfg = P.ConfigTrain(modelo=modelo, epochs=DEMO_EPOCHS, fold_test=DEMO_FOLD[pid], root=root)
+        have = {str(p.relative_to(cfg.fold_dir)) for p in cfg.fold_dir.rglob("*") if p.is_file()}
+        want = {"args.yaml", "results.csv", "weights/best.pt", "weights/last.pt",
+                "weights/fitness.json"}
+        if not want <= have:
+            raise AssertionError(f"{pid}: fold {DEMO_FOLD[pid]} lacks {sorted(want - have)}")
+        with open(cfg.fold_dir / "results.csv") as f:
+            rows = list(csv.reader(f))[1:]
+        losses = [float(v) for r in rows for v in r[TRAIN_LOSS_COLS[0]]]
+        if len(rows) != DEMO_EPOCHS or not all(np.isfinite(losses)):
+            raise AssertionError(f"{pid}: results.csv {rows}")
+        exp = f"{modelo.base_path}_{DEMO_EPOCHS}epochs"
+        fold = f"fold{DEMO_FOLD[pid]}"
+        for f in (root / "pred_vols" / exp / fold / pid / f"{pid}_axial.nii.gz",
+                  root / "results" / exp / fold / pid / f"{pid}_axial_results.json"):
+            if not f.is_file():
+                raise AssertionError(f"{pid}: no {f.relative_to(root)}")
+        base = P.gif.prediction_dir(modelo, pid, root)
+        preds = sorted(base.glob("pred_masks/*.png"))
+        ids = sorted(int(p.stem.rsplit("_", 1)[1]) for p in preds)
+        if not ids:
+            raise AssertionError(f"{pid}: stage 3 wrote no pred_masks")
+        pac = P.Paciente(id=pid, plano="axial", modalidad=["FLAIR"], mejora=mejora, dataset_dir=ds)
+        u8 = P.enhance.enhance_for_model(
+            torch.from_numpy(pac.cortes_imagen_batch(ids, "FLAIR")).to(dev), mejora)
+        stored = np.stack([P.png.load_pred_png(base / "pred_masks" / f"{pid}_FLAIR_{i}.png")
+                           for i in ids]) > 0
+        pred = P.SlicePredictor(smodel, P.load_checkpoint(cfg.best_ckpt), tuple(u8.shape[1:]),
+                                imgsz=imgsz, device=dev)
+        if pred._stem_w is None:
+            raise AssertionError(f"{pid}: the direct predictor did not take the fused stem")
+        checks = demo_stage3_checks(torch, P, pred, u8, stored)
+
+        # the viz: frames and slice computed here; files where the libraries import
+        frames, fps, gif_path = P.gif.preparar_gif(modelo, pid, DEMO_EPOCHS, root=root)
+        if len(frames) != len(preds):
+            raise AssertionError(f"{pid}: {len(frames)} GIF frames for {len(preds)} predictions")
+        idx, slice_dsc, _ = P.figure.seleccionar_mejor_corte(
+            P.gif.collect_slices(base, pid, "FLAIR"))
+        fig_path = gif_path.parent / f"{pid}_FLAIR_{idx}.png"
+        case_warned = rec_s[pid]["warnings"]
+        want_gif = viz["imageio"]
+        want_fig = viz["imageio"] and viz["matplotlib"]
+        if gif_path.is_file() != want_gif or fig_path.is_file() != want_fig:
+            raise AssertionError(f"{pid}: GIF written {gif_path.is_file()}, figure written "
+                                 f"{fig_path.is_file()} with {viz}")
+        if len(case_warned) != (0 if want_fig else 1) or \
+                any("Visualización no generada" not in w for w in case_warned):
+            raise AssertionError(f"{pid}: viz warnings {case_warned} with {viz}")
+        if not want_gif and (root / "visualizaciones").exists():
+            raise AssertionError(f"{pid}: the viz wrote files without imageio")
+        cases[pid] = {"mejora": mejora, "fold": DEMO_FOLD[pid], "slices": len(ids),
+                      "s": rec_s[pid]["s"], "stage3_vs_plain": checks, "gif_frames": len(frames),
+                      "gif_fps": fps, "figure_slice": idx, "figure_slice_dsc": slice_dsc,
+                      "results": json.loads((root / "results" / exp / fold / pid /
+                                             f"{pid}_axial_results.json").read_text())}
+    branch = ("gif_and_figure_written" if viz["imageio"] and viz["matplotlib"] else
+              "gif_written_figure_warned" if viz["imageio"] else "one_warning_per_case_nothing_written")
+    emit({"phase": "viz_18", "imports": viz, "branch": branch,
+          "warnings": {pid: r["warnings"] for pid, r in rec_s.items()}})
+    emit({"phase": "demo", "model": "YOLO11n-seg", "imgsz": imgsz, "dtype": str(smodel.dtype),
+          "epochs": DEMO_EPOCHS, "k_folds": 5, "cases": cases, "demo_log": True,
+          "informational": {"setup_s": setup_s, **card}})
+
+    # capacity mode on the same two patients
+    rec = {}
+
+    def capture(*a, **kw):
+        rec["res"] = real_cap(*a, **kw)
+        return rec["res"]
+
+    real_cap = P.capacidad.ejecutar_capacidad
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(switched(P.capacidad, "ejecutar_capacidad", capture))
+        os.chdir(root)
+        stack.callback(os.chdir, cwd)
+        met = P.capacidad.main(["--epochs", str(DEMO_EPOCHS), "--batch", "8", "--dataset", str(ds)])
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    cap_launches = read_launches(counters)
+    res = rec["res"]
+    losses = [v for e in res["perdidas"] for v in e.values()]
+    if len(res["perdidas"]) != DEMO_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"capacity mode: losses {res['perdidas']}")
+    if not (root / res["pesos"]).is_file():
+        raise AssertionError("capacity mode wrote no best.pt")
+    if set(met) != {"DSC", "AUC", "Precision", "Recall"} or \
+            not all(np.isfinite(list(met.values()))):
+        raise AssertionError(f"capacity mode: metrics {met}")
+    if cap_launches["mask_union"] < 1 or cap_launches["stem"] < 1:
+        raise AssertionError(f"capacity mode's evaluation launched {cap_launches}")
+    emit({"phase": "capacidad", "epochs": DEMO_EPOCHS, "batch": res["batch"], "metrics": met,
+          "losses": res["perdidas"], "launches": cap_launches,
+          "micro_step_ms_warm_epochs": res["paso_ms"], "run_s": cap_s, **card})
+
+    # the extras: the demo tree's per-patient JSONs, phase 10's global ones
+    resumen = P.analizar.analizar_resultados(root / "results")
+    if {k.split("/")[0] for k in resumen} != {c["mejora"] for c in P.demo.DEMO_CASES}:
+        raise AssertionError(f"analizar_resultados: {resumen}")
+    if not global_rows or any(set(r) < {"Mejora", "Config", "Plano", "DSC"} for r in global_rows):
+        raise AssertionError(f"componer_resultados: {global_rows}")
+    emit({"phase": "extras", "analizar_resultados": resumen, "componer_resultados": global_rows})
+
+    # the native PNG writer: built here, the same bytes as encode_gray
+    if not P.native.available():
+        raise AssertionError(f"the native PNG writer did not build: {P.native.build_error}")
+    gen = np.random.default_rng(18)
+    imgs = (gen.random((NATIVE_PNGS, VOL_SHAPE[1], VOL_SHAPE[0])) ** 3 * 255).astype(np.uint8)
+    out = root / "native_pngs"
+    out.mkdir()
+    paths = [out / f"{i}.png" for i in range(NATIVE_PNGS)]
+    t0 = time.perf_counter()
+    ok = P.native.write_gray_png_batch(paths, imgs)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, a in enumerate(imgs):  # the fallback: encode_gray, one file at a time
+        (out / f"e{i}.png").write_bytes(P.png.encode_gray(a))
+    encode_s = time.perf_counter() - t0
+    if not ok or any(p.read_bytes() != (out / f"e{i}.png").read_bytes()
+                     for i, p in enumerate(paths)):
+        raise AssertionError("the native writer's PNGs differ from encode_gray's")
+    emit({"phase": "native_png", "built": True, "pngs": NATIVE_PNGS,
+          "shape": list(imgs.shape[1:]), "equal_bytes": True,
+          "host_s_native_batch_write": native_s, "host_s_encode_gray_write": encode_s,
+          "phase_s": time.perf_counter() - t_phase, **card})
+    return {"launches": launches, "capacity_launches": cap_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1836,6 +2138,11 @@ def main() -> int:
         autobatch, engine, engine_parallel, fold_parallel, trainer, validate,
     )
     from tpu_mslesseg_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from tpu_mslesseg_torch.demo import ejecutar_demo, entrenar_capacidad
+    from tpu_mslesseg_torch.extras import analizar_pacientes_dsc, componer_resultados
+    from tpu_mslesseg_torch.infer import predictor
+    from tpu_mslesseg_torch.io import native
+    from tpu_mslesseg_torch.viz import figure, gif
 
     # the port's modules the CLI phases use
     P = types.SimpleNamespace(
@@ -1851,6 +2158,8 @@ def main() -> int:
         trainer=trainer, synthetic_batch=train_batch, autobatch=autobatch, engine=engine,
         validate=validate, rapido=rapido, engine_parallel=engine_parallel,
         fold_parallel=fold_parallel, distributed=distributed, mesh=mesh,
+        demo=ejecutar_demo, capacidad=entrenar_capacidad, analizar=analizar_pacientes_dsc,
+        native=native, gif=gif, figure=figure, predictor=predictor,
     )
 
     dev = torch.device(DEVICE)
@@ -2398,6 +2707,8 @@ def main() -> int:
         chain = phase_cli_chain(torch, P, Path(tmp) / "chain", counters, dev)
         default = phase_cli_default(torch, P, Path(tmp) / "chain", Path(tmp) / "default",
                                     chain, counters, dev)
+        # phase 18's results table: the global JSONs of phase 9's three planes
+        global_rows = componer_resultados.componer_resultados(Path(tmp) / "chain" / "results")
     torch.cuda.empty_cache()
 
     # ---- phases 11 and 12: the stem at every scale, served at s, m and n ---
@@ -2439,13 +2750,19 @@ def main() -> int:
     phase_nccl_one_rank(torch, P, dev, card)
     torch.cuda.empty_cache()
 
+    # ---- phase 18: the demo, capacity mode, the extras, the native writer ---
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as tmp:
+        demo = phase_demo(torch, P, Path(tmp), counters, dev, card, global_rows)
+    torch.cuda.empty_cache()
+
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
                "cli_chain": chain["launches"], "cli_default": default["launches"],
                "lote_scale_s": scale_s_launches, "lote_scale_m_f32": scale_m_launches,
                "lote_scale_n_f32": scale_n_launches,
                "train": train_launches,
                "train_cli_then_serve": train_cli["launches"],
-               "train_paralelo": train_par["launches"]}
+               "train_paralelo": train_par["launches"], "demo": demo["launches"],
+               "capacidad": demo["capacity_launches"]}
 
     for name in KERNELS:
         max_err[name] = max(max_err[name], chain["kernels"][name]["max_abs_err"])

@@ -27,14 +27,17 @@ def test_importing_every_port_module_leaves_jax_out():
     for name in ("infer.consensus3", "pipeline.rapido", "pipeline.paths", "io.nifti",
                  "train.checkpoint", "model.stem", "preproc.clahe", "io.png",
                  "pipeline.ejecutar_pipeline", "pipeline.stages.extraer_dataset",
-                 "pipeline.stages.reconstruir_volumen", "pipeline.stages.promediar_folds"):
+                 "pipeline.stages.reconstruir_volumen", "pipeline.stages.promediar_folds",
+                 "viz.overlay", "viz.gif", "viz.figure", "extras.analizar_pacientes_dsc",
+                 "extras.componer_resultados", "demo.ejecutar_demo", "demo.entrenar_capacidad",
+                 "io.native"):
         assert f"tpu_mslesseg_torch.{name}" in mods, name
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(k for k in sys.modules "
         "if k == 'jax' or k.startswith(('jax.', 'tpu_mslesseg.', 'flax')) "
-        "or k == 'tpu_mslesseg')))\n"
+        "or k == 'tpu_mslesseg' or k.split('.')[0] in ('pandas', 'imageio', 'matplotlib'))))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -83,6 +86,7 @@ def test_the_training_entry_points_default_to_the_card():
     import inspect
 
     from tpu_mslesseg_torch.core import distributed
+    from tpu_mslesseg_torch.demo import entrenar_capacidad
     from tpu_mslesseg_torch.pipeline.stages import train as stage
     from tpu_mslesseg_torch.train import (
         autobatch, data, engine, engine_parallel, fold_parallel, trainer, validate,
@@ -92,14 +96,20 @@ def test_the_training_entry_points_default_to_the_card():
                autobatch.auto_batch_size, validate.run_validation, data.build_dataset,
                trainer.init_train_state, stage.ejecutar_train_paralelo,
                engine_parallel.train_folds_parallel, fold_parallel.init_fold_state,
-               fold_parallel.init_multi_fold_state, distributed.maybe_initialize):
+               fold_parallel.init_multi_fold_state, distributed.maybe_initialize,
+               entrenar_capacidad.ejecutar_capacidad, entrenar_capacidad.evaluar_capacidad):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
 CLIS = ("pipeline.ejecutar_pipeline", "pipeline.stages.setup", "pipeline.stages.extraer_dataset",
         "pipeline.stages.generar_predicciones", "pipeline.stages.reconstruir_volumen",
         "pipeline.stages.generar_consenso", "pipeline.stages.eval",
-        "pipeline.stages.promediar_folds", "pipeline.stages.train")
+        "pipeline.stages.promediar_folds", "pipeline.stages.train", "viz.gif", "viz.figure",
+        "extras.analizar_pacientes_dsc", "extras.componer_resultados", "demo.ejecutar_demo",
+        "demo.entrenar_capacidad")
+# the CLIs of the viz, the extras and the demo, which take neither flag
+NO_SLICE_FLAGS = ("pipeline.stages.setup", "extras.analizar_pacientes_dsc",
+                  "extras.componer_resultados", "demo.ejecutar_demo", "demo.entrenar_capacidad")
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +130,8 @@ def cli_help():
         "        rc = e.code\n"
         "    out[m] = [rc, buf.getvalue()]\n"
         "out['foreign'] = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'flax', 'tpu_mslesseg', 'PIL', 'cv2', 'nibabel'))\n"
+        "('jax', 'flax', 'tpu_mslesseg', 'PIL', 'cv2', 'nibabel', 'pandas', 'imageio', "
+        "'matplotlib'))\n"
         "print(json.dumps(out))\n"
     )
     run = subprocess.run(
@@ -134,7 +145,7 @@ def cli_help():
 def test_every_cli_prints_its_help_and_loads_nothing_foreign(cli_help, cli):
     rc, text = cli_help[cli]
     assert rc == 0 and "usage:" in text
-    if cli != "pipeline.stages.setup":
+    if cli not in NO_SLICE_FLAGS:
         assert "--num_cortes" in text and "--mejora" in text
     assert "--device" not in text  # the flag vocabulary is the reference's
     assert cli_help["foreign"] == []
@@ -147,7 +158,10 @@ def test_port_sources_never_name_jax():
             assert not s.startswith(("import jax", "from jax")), (path, line)
             assert not s.startswith(("import tpu_mslesseg ", "from tpu_mslesseg.")), (path, line)
             assert not s.startswith(("import PIL", "from PIL", "import cv2", "import nibabel",
-                                     "from nibabel")), (path, line)
+                                     "from nibabel", "import pandas", "from pandas")), (path, line)
+            # imageio and matplotlib only inside the function that writes
+            if s.startswith(("import imageio", "import matplotlib", "from matplotlib")):
+                assert line.startswith("    "), (path, line)
 
 
 def _run_smoke(cwd):

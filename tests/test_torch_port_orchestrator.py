@@ -244,7 +244,7 @@ def one_torch_thread():
 
 
 @pytest.mark.usefixtures("one_torch_thread")
-def test_entrenar_on_an_untrained_fold_stops_and_names_the_roadmap(untrained, monkeypatch):
+def test_completo_entrenar_trains_every_fold_at_once_and_serves_them(untrained, monkeypatch):
     """Full mode with no fold trained trains all folds at once (ROADMAP A7,
     ported) and serves each from its ``best.pt``: the CLI's ``--completo
     --entrenar`` exits 0 with every fold's files (the fold-by-fold path is

@@ -6,9 +6,11 @@ stores slices/masks/predictions as PNGs (reference
 stays in volume-slice space; these helpers apply the PNG-space transform and
 8-bit conversion only when crossing the file boundary.
 
-Where the JAX package leans on PIL and a native writer, this module carries
-its own codec on the standard library (``zlib``, ``struct``), as
-``io/nifti.py`` does for NIfTI. It covers exactly what the pipeline stores:
+Where the JAX package leans on PIL, this module carries its own codec on the
+standard library (``zlib``, ``struct``), as ``io/nifti.py`` does for NIfTI;
+`save_gray` and `save_gray_batch` go through the native writer
+(``io/native.py``) where it builds, which writes the same bytes. The codec
+covers exactly what the pipeline stores:
 
 * write: 8-bit grayscale (colour type 0), not interlaced, filter 0 on every
   row;
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from tpu_mslesseg_torch.core import geometry
+from tpu_mslesseg_torch.io import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _ZLIB_LEVEL = 6
@@ -140,16 +143,28 @@ def decode_gray(raw: bytes, path="<bytes>") -> np.ndarray:
 
 
 def save_gray(path, array2d):
-    """Save a 2D uint8 array as a grayscale PNG."""
+    """Save a 2D uint8 array as a grayscale PNG (native encoder when the
+    hostio library is available, `encode_gray` otherwise: the same bytes)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(encode_gray(array2d))
+    arr = np.asarray(array2d, dtype=np.uint8)
+    if native.write_gray_png(path, arr):
+        return
+    path.write_bytes(encode_gray(arr))
 
 
 def save_gray_batch(paths, arrays):
-    """Write a batch of grayscale PNGs. arrays: [N, H, W] uint8."""
-    for p, a in zip(paths, np.asarray(arrays, dtype=np.uint8)):
-        save_gray(p, a)
+    """Write a batch of grayscale PNGs (OpenMP-parallel native writer, with
+    a serial `encode_gray` fallback that rewrites the batch and raises the
+    error of a file that cannot be written). arrays: [N, H, W] uint8."""
+    paths = [Path(p) for p in paths]
+    for d in dict.fromkeys(p.parent for p in paths):
+        d.mkdir(parents=True, exist_ok=True)
+    arrays = np.asarray(arrays, dtype=np.uint8)
+    if len(paths) and native.write_gray_png_batch(paths, arrays):
+        return
+    for p, a in zip(paths, arrays):
+        p.write_bytes(encode_gray(a))
 
 
 def load_gray(path) -> np.ndarray:

@@ -6,9 +6,7 @@ Port of ``tpu_mslesseg/pipeline/logging_setup.py``. Parity notes
 * custom levels SKIP=23 and HEADER=35 with ``logger.skip(...)`` /
   ``logger.header(...)`` methods (:34-48);
 * colored console formatter + ANSI-stripping file formatter (:58-84);
-* ``pipeline.log`` overwritten per run.
-
-The demo's log swap comes with the demo.
+* ``pipeline.log`` overwritten per run; demo swaps in ``demo.log`` (:133).
 """
 
 from __future__ import annotations
@@ -81,6 +79,22 @@ def configure_logging(level=logging.INFO, log_file="pipeline.log"):
         fh.setFormatter(NoColorFormatter("%(message)s"))
         root.addHandler(fh)
     return root
+
+
+def configure_logging_demo():
+    """Swap the pipeline.log file handler for demo.log (cwd-relative)."""
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        if isinstance(h, logging.FileHandler) and "pipeline.log" in str(
+            getattr(h, "baseFilename", "")
+        ):
+            root.removeHandler(h)
+    demo_handler = logging.FileHandler(
+        Path.cwd() / "demo.log", mode="w", encoding="utf-8"
+    )
+    demo_handler.setLevel(logging.INFO)
+    demo_handler.setFormatter(NoColorFormatter("%(message)s"))
+    root.addHandler(demo_handler)
 
 
 _CONFIGURED = False

@@ -91,6 +91,24 @@ def _write_figures(out: Path, cfg: TrainConfig, train_set, acfg, val_acc, val_se
         plots.plot_val_batch(val_model, state.served_state_dict(), vb, out)
 
 
+def run_epoch(state, dd: dict, n_slices: int, acfg: augment.AugConfig, axis=None) -> dict:
+    """One epoch of micro-steps over a dataset's `dd` (``as_dict()``) of
+    `n_slices` slices: the epoch's source indices and each micro-step's
+    augmentation drawn from ``state.gen``, the mosaic as `acfg` says, then
+    `trainer.train_step` at ``state.cfg.batch_size`` (this rank's part of
+    it over `axis`). Returns the epoch's mean loss parts, fetched from the
+    device once."""
+    bs = state.cfg.batch_size
+    idx = tdata.epoch_indices(state.gen, n_slices, bs, acfg.mosaic)
+    part = axis.local_slice(bs) if axis is not None else slice(None)
+    parts = []
+    for i in range(idx.shape[0]):
+        params = augment.draw_params(state.gen, acfg, bs).rows(part)
+        m = trainer.train_step(state, augment.make_batch(params, dd, idx[i][part], acfg), axis)
+        parts.append(torch.stack([m[k] for k in validate.LOSS_PARTS]))
+    return dict(zip(validate.LOSS_PARTS, torch.stack(parts).mean(0).tolist()))
+
+
 def train_fold(
     model,
     fold_test: int,
@@ -191,16 +209,7 @@ def train_fold(
     epochs_run = start_epoch - 1
     for epoch in range(start_epoch, cfg.epochs + 1):
         use_mosaic = epoch <= cfg.epochs - cfg.close_mosaic
-        idx = tdata.epoch_indices(state.gen, len(train_set), cfg.batch_size, use_mosaic)
-        parts = []
-        part = axis.local_slice(cfg.batch_size) if axis is not None else slice(None)
-        for i in range(idx.shape[0]):
-            params = augment.draw_params(state.gen, acfg[use_mosaic], cfg.batch_size).rows(part)
-            m = trainer.train_step(
-                state, augment.make_batch(params, dd, idx[i][part], acfg[use_mosaic]), axis)
-            parts.append(torch.stack([m[k] for k in validate.LOSS_PARTS]))
-        # the epoch's mean train losses: one fetch from the device an epoch
-        train_losses = dict(zip(validate.LOSS_PARTS, torch.stack(parts).mean(0).tolist()))
+        train_losses = run_epoch(state, dd, len(train_set), acfg[use_mosaic], axis)
 
         if val_set is not None and (epoch % val_every == 0 or epoch == cfg.epochs):
             val_metrics, val_losses, val_acc = validate.run_validation(
