@@ -199,11 +199,15 @@ pipeline's log lines):
    case's stage 3 launched the union kernel and the stem (a
    ``demo_kernels`` line) and that stage 1 and 3 wrote through the native
    PNG writer; the stored masks against a direct ``SlicePredictor`` call
-   (equal), the stem and the union against their plain versions on that
-   call's tensors (the union at NMS confidence 0.001, its plain masks equal
-   but within 1e-3 of the threshold), the plain stem and union end to end
-   by Dice (at least 0.99); the GIF's frames against the predictions, the
-   figure's slice from ``seleccionar_mejor_corte``, and the files or the
+   (equal) and the plain stem and union end to end by Dice (at least
+   0.99), both stated vacuous in the line where every served mask is
+   empty; the stem and the union against their plain versions on that
+   call's tensors; at NMS confidence 0.001 the union's masks against the
+   plain union's (equal but within 1e-3 of the threshold) and the plain
+   stem and union's by Dice, at the served threshold and at the median
+   logit inside the kept boxes, where positive pixels are required; the
+   GIF's frames against the predictions, the figure's slice from
+   ``seleccionar_mejor_corte``, and the files or the
    one warning a case as imageio and matplotlib import (a ``viz_18`` line
    says which). Then capacity mode (``entrenar_capacidad.main``, 3 epochs,
    batch 8: finite losses, ``best.pt``, finite metrics, the evaluation's
@@ -1843,14 +1847,36 @@ def importable(name: str) -> bool:
     return importlib.util.find_spec(name) is not None
 
 
+def masks_near_threshold(k_logits, p_logits, t) -> dict:
+    """The masks of kernel logits against those of plain logits at threshold
+    `t`: they may differ only where the plain logit lies within
+    ``NEAR_THRESHOLD`` of `t`. Raises beyond it."""
+    differ = (k_logits > t) != (p_logits > t)
+    worst = float((p_logits - t).abs()[differ].max()) if bool(differ.any()) else 0.0
+    out = {"threshold": float(t), "positive_pixels": int((k_logits > t).sum()),
+           "positive_pixels_plain": int((p_logits > t).sum()),
+           "pixels_differing": int(differ.sum()), "worst_plain_logit_from_threshold": worst}
+    if worst >= NEAR_THRESHOLD:
+        raise AssertionError(f"plain-union masks differ away from the threshold: {out}")
+    return out
+
+
+def held_or_vacuous(positive: int) -> str:
+    return "held" if positive else "vacuous: every mask is empty"
+
+
 def demo_stage3_checks(torch, P, pred, u8, stored) -> dict:
     """One demo patient's stage-3 masks (`stored`, from its PNGs) against a
-    direct `pred` call on the same enhanced slices `u8` (kernels on: equal);
-    each kernel against its plain version on that call's own tensors, the
-    union's with NMS at ``CHECK_CONF`` so that it holds kept boxes after three
-    epochs of training (within its bound, and the masks of the plain union
-    differ only within ``NEAR_THRESHOLD`` of the threshold); the whole plain
-    path (plain stem, plain union) at the served confidence by its Dice.
+    direct `pred` call on the same enhanced slices `u8` (kernels on: equal),
+    and the whole plain path (plain stem, plain union) at the served
+    confidence by its Dice; both are vacuous where every served mask is
+    empty, and the returned dict says so. Then at NMS confidence
+    ``CHECK_CONF``, which keeps boxes after three epochs of training: each
+    kernel against its plain version on that call's own tensors (within its
+    bound); the union's masks against the plain union's by the
+    near-threshold rule, and the whole plain path's by their Dice, at the
+    served threshold and at the median plain logit inside the kept boxes,
+    which has positive pixels whatever the training learnt (required).
     Raises where one fails."""
     smodel, out = pred.model, {}
     masks = pred(u8)
@@ -1861,35 +1887,52 @@ def demo_stage3_checks(torch, P, pred, u8, stored) -> dict:
     torch.cuda.synchronize()
     out["stem"] = stem_errors(torch, P.stem, smodel, pred._stem_w, x, got, want)
     del got, want
-    rec = Recorder(P.mu.mask_union_logits_batch)
+    ys, xs = P.predictor.proto_grid(pred.lb, x.device)
+    with torch.inference_mode():
+        served = P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf,
+                                    pred.iou, pred.max_det, mask_union=P.mu.mask_union_logits_ref)
+    plain = P.geometry.from_png_space_batch(P.predictor._bilinear_sample(served, ys, xs)
+                                            > pred.mask_thresh)
+    out["served_conf"] = {"conf": pred.conf, "positive_pixels": int(masks.sum()),
+                          "stored_equal_direct_and_plain_dice": held_or_vacuous(int(masks.sum())),
+                          "plain_path_dice": dice(plain, masks),
+                          "plain_path_pixels_differing": int((plain != masks).sum())}
+    if out["served_conf"]["plain_path_dice"] < MIN_DICE:
+        raise AssertionError(f"plain stem and union vs stage 3: {out['served_conf']} below {MIN_DICE}")
+
+    rec, rec_plain = Recorder(P.mu.mask_union_logits_batch), Recorder(P.mu.mask_union_logits_ref)
     with torch.inference_mode():
         P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, CHECK_CONF, pred.iou,
                            pred.max_det, mask_union=rec, stem_w=pred._stem_w)
+        P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, CHECK_CONF, pred.iou,
+                           pred.max_det, mask_union=rec_plain)
     call, got = rec.last[:5], rec.last[5]
     want = P.mu.mask_union_logits_ref(*call)
     torch.cuda.synchronize()
-    out["mask_union"] = check_union(torch, P.mu, call, got, want)
-    out["mask_union"]["conf"] = CHECK_CONF
-    out["mask_union"]["kept_per_image"] = float(call[3].sum()) / call[3].shape[0]
-    ys, xs = P.predictor.proto_grid(pred.lb, got.device)
-    k_logits = P.predictor._bilinear_sample(got, ys, xs)
-    p_logits = P.predictor._bilinear_sample(want, ys, xs)
-    differ = (k_logits > pred.mask_thresh) != (p_logits > pred.mask_thresh)
-    worst = float((p_logits - pred.mask_thresh).abs()[differ].max()) if bool(differ.any()) else 0.0
-    out["mask_union"].update({"pixels_differing": int(differ.sum()),
-                              "worst_plain_logit_from_threshold": worst})
-    if worst >= NEAR_THRESHOLD:
-        raise AssertionError(f"plain-union masks differ away from the threshold ({worst})")
-    with torch.inference_mode():
-        union = P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf,
-                                   pred.iou, pred.max_det, mask_union=P.mu.mask_union_logits_ref)
-    plain = P.geometry.from_png_space_batch(P.predictor._bilinear_sample(union, ys, xs)
-                                            > pred.mask_thresh)
-    out["plain_path"] = {"dice_vs_stage3": dice(plain, masks),
-                         "pixels_differing": int((plain != masks).sum())}
-    if out["plain_path"]["dice_vs_stage3"] < MIN_DICE:
-        raise AssertionError(f"plain stem and union vs stage 3: {out['plain_path']} below {MIN_DICE}")
-    out["positive_pixels"] = int(masks.sum())
+    union = out["mask_union"] = check_union(torch, P.mu, call, got, want)
+    union.update({"conf": CHECK_CONF, "kept_per_image": float(call[3].sum()) / call[3].shape[0]})
+    boxed = want[want > P.mu._NEG / 2]  # the pixels that a kept box holds
+    if boxed.numel() == 0:
+        raise AssertionError(f"no kept box at NMS confidence {CHECK_CONF}")
+    union["boxed_logit_quartiles"] = torch.quantile(
+        boxed, torch.tensor([0.25, 0.5, 0.75], device=boxed.device)).tolist()
+    k_logits, p_logits, path_logits = (P.predictor._bilinear_sample(u, ys, xs)
+                                       for u in (got, want, rec_plain.last[5]))
+    path = out["plain_path_at_check_conf"] = {
+        "slices_whose_nms_keep_differs": int((rec_plain.last[3] != call[3]).any(dim=1).sum())}
+    for name, t in (("served_threshold", pred.mask_thresh),
+                    ("median_boxed_logit", float(boxed.median()))):
+        union[name] = masks_near_threshold(k_logits, p_logits, t)
+        union[name]["check"] = held_or_vacuous(union[name]["positive_pixels"])
+        path[name] = {"threshold": float(t), "positive_pixels": int((path_logits > t).sum()),
+                      "dice": dice(path_logits > t, k_logits > t),
+                      "pixels_differing": int(((path_logits > t) != (k_logits > t)).sum())}
+        path[name]["check"] = held_or_vacuous(path[name]["positive_pixels"])
+        if path[name]["dice"] < MIN_DICE:
+            raise AssertionError(f"plain stem and union at conf {CHECK_CONF}: {path} below {MIN_DICE}")
+    if not union["median_boxed_logit"]["positive_pixels"] or \
+            not path["median_boxed_logit"]["positive_pixels"]:
+        raise AssertionError(f"no positive pixel at the median boxed logit: {union}, {path}")
     return out
 
 
@@ -2022,6 +2065,8 @@ def phase_demo(torch, P, root: Path, counters, dev, card, global_rows) -> dict:
         cases[pid] = {"mejora": mejora, "fold": DEMO_FOLD[pid], "slices": len(ids),
                       "s": rec_s[pid]["s"], "stage3_vs_plain": checks, "gif_frames": len(frames),
                       "gif_fps": fps, "figure_slice": idx, "figure_slice_dsc": slice_dsc,
+                      "figure_slice_check": held_or_vacuous(
+                          checks["served_conf"]["positive_pixels"]),
                       "results": json.loads((root / "results" / exp / fold / pid /
                                              f"{pid}_axial_results.json").read_text())}
     branch = ("gif_and_figure_written" if viz["imageio"] and viz["matplotlib"] else

@@ -10,10 +10,10 @@ exposes:
 * `gzip_bytes(data)`                  — gzip container compression
 
 The PNG bytes are those of `io.png.encode_gray`: filter 0 on every row, zlib
-level 6, one IDAT chunk. Where the library cannot be built or loaded,
-`available()` is False, one warning carries the compiler's (or loader's)
-error, and `io.png` writes through `encode_gray` instead (the JAX package
-falls back to PIL).
+level `ZLIB_LEVEL` (one constant for both writers), one IDAT chunk. Where
+the library cannot be built or loaded, `available()` is False, one warning
+carries the compiler's (or loader's) error, and `io.png` writes through
+`encode_gray` instead (the JAX package falls back to PIL).
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ _PKG = Path(__file__).resolve().parents[1]
 _SRC = _PKG / "csrc" / "hostio.cc"
 _LIB = _PKG / "_build" / "libhostio.so"
 CXX = "g++"
+# the zlib level of every PNG the port writes, natively or through
+# `io.png.encode_gray`: the two give the same bytes only at the same level
+ZLIB_LEVEL = 6
 
 _lock = threading.Lock()
 _lib = None
@@ -102,7 +105,7 @@ def available() -> bool:
     return _load() is not None
 
 
-def write_gray_png(path, img: np.ndarray, level: int = 6) -> bool:
+def write_gray_png(path, img: np.ndarray) -> bool:
     lib = _load()
     if lib is None:
         return False
@@ -112,16 +115,15 @@ def write_gray_png(path, img: np.ndarray, level: int = 6) -> bool:
     h, w = img.shape
     rc = lib.hostio_write_gray_png(
         str(path).encode(), img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        h, w, level,
+        h, w, ZLIB_LEVEL,
     )
     return rc == 0
 
 
-def write_gray_png_batch(paths, imgs: np.ndarray, level: int = 6,
-                         threads: int = 0) -> bool:
-    """Write imgs[i] -> paths[i] in parallel. imgs: [N, H, W] uint8. False
-    when the library is missing or any file failed (the others are
-    written)."""
+def write_gray_png_batch(paths, imgs: np.ndarray) -> bool:
+    """Write imgs[i] -> paths[i] in parallel, on OpenMP's default thread
+    count. imgs: [N, H, W] uint8. False when the library is missing or any
+    file failed (the others are written)."""
     lib = _load()
     if lib is None:
         return False
@@ -134,7 +136,7 @@ def write_gray_png_batch(paths, imgs: np.ndarray, level: int = 6,
     arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
     failures = lib.hostio_write_gray_png_batch(
         arr, imgs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        n, h, w, level, threads,
+        n, h, w, ZLIB_LEVEL, 0,  # 0 threads: OpenMP's default
     )
     return failures == 0
 

@@ -34,7 +34,6 @@ from tpu_mslesseg_torch.core import geometry
 from tpu_mslesseg_torch.io import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_ZLIB_LEVEL = 6
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -55,7 +54,7 @@ def encode_gray(array2d) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
     return (
         _SIGNATURE + _chunk(b"IHDR", ihdr)
-        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), _ZLIB_LEVEL))
+        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), native.ZLIB_LEVEL))
         + _chunk(b"IEND", b"")
     )
 
