@@ -85,8 +85,12 @@ pipeline's log lines):
    GT tree, then stages 1, 3, 4, 6 a plane, and 5, 6, 7 after the third).
    Checks the whole artifact tree, that the consensus waited for the third
    plane, that all four kernels launched, that one patient's stage-1 image
-   PNGs equal the same enhancement on the CPU, its stage-3 masks a direct
-   ``SlicePredictor`` call on the same enhanced slices and its stage-4
+   PNGs equal the same enhancement on the CPU, that its stage-1 label files
+   of the first plane equal, byte for byte, ``write_yolo_seg_label_ref``
+   (the reference's walk) on each slice's GT PNG (the plain writer's
+   seconds, stage 1's seconds a plane and the label bytes are printed
+   beside), its stage-3 masks a direct ``SlicePredictor`` call on the same
+   enhanced slices and its stage-4
    volumes ``reconstruct_volume`` of them, that each of the four kernels
    agrees with its plain version on that patient's own stage-3 tensors (50
    images a launch, where the earlier phases hold them at 200 and 600; the
@@ -876,6 +880,28 @@ def chain_kernel_checks(torch, P, pred, raw) -> dict:
     return out
 
 
+def check_labels(P, d: Path, pid: str, ids) -> dict:
+    """Every label file stage 1 wrote under `d` (one patient and plane)
+    against ``write_yolo_seg_label_ref`` on its slice's GT PNG, byte for
+    byte; returns the files' bytes and the seconds of the plain writer and
+    of stage 1's writer on the same masks."""
+    out = {"files": len(ids), "bytes": 0, "ref_writer_s": 0.0, "writer_s": 0.0}
+    with tempfile.TemporaryDirectory(prefix="labels_ref_") as tmp:
+        for i in ids:
+            gt = P.png.load_gray(d / "GT_masks" / f"{pid}_{i}.png")
+            for key, write in (("ref_writer_s", P.labels.write_yolo_seg_label_ref),
+                               ("writer_s", P.labels.write_yolo_seg_label)):
+                t0 = time.perf_counter()
+                write(gt, Path(tmp) / f"{key}.txt")
+                out[key] += time.perf_counter() - t0
+            got = (d / "labels" / f"{pid}_{i}.txt").read_bytes()
+            if got != (Path(tmp) / "ref_writer_s.txt").read_bytes():
+                raise AssertionError(f"{d / 'labels'}: slice {i}'s label file differs from "
+                                     "write_yolo_seg_label_ref on its GT mask")
+            out["bytes"] += len(got)
+    return out
+
+
 def phase_cli_chain(torch, P, root: Path, counters, dev) -> dict:
     """Phase 9: three planes through ``main(... --completo --sin_rapido)``."""
     t0 = time.perf_counter()
@@ -884,12 +910,13 @@ def phase_cli_chain(torch, P, root: Path, counters, dev) -> dict:
     exp = f"{modelo['axial'].base_path}_{EPOCHS}epochs"
     P.profiling.reset_timings()
     zero_launches(counters)
-    plane_s, consensus_after = {}, {}
+    plane_s, consensus_after, stage1_s = {}, {}, {}
     for p in PLANES:
-        t0 = time.perf_counter()
+        s1, t0 = stage1_total(P), time.perf_counter()
         run_cli(P.orch, root, p, "--sin_rapido")
         torch.cuda.synchronize()
         plane_s[p] = time.perf_counter() - t0
+        stage1_s[p] = stage1_total(P) - s1
         consensus_after[p] = sum("consenso" in f.name for f in tree(root, "pred_vols"))
     launches = read_launches(counters)
     timings = P.profiling.timings_summary()
@@ -905,9 +932,13 @@ def phase_cli_chain(torch, P, root: Path, counters, dev) -> dict:
     if any(len(ids) != N_PER_PLANE for ids in indices.values()):
         raise AssertionError("stage 1 did not keep 50 slices a plane")
     vols = check_volumes_and_jsons(torch, root, P, modelo, dev)
+    label_bytes = sum((root / f).stat().st_size for f in want_data if f.suffix == ".txt")
 
     # one patient against the direct calls, plane by plane
     pid, fold = CLI_CHECKED, CLI_PATIENTS[CLI_CHECKED]
+    labels_checked = check_labels(
+        P, root / "datasets" / modelo[PLANES[0]].base_path / f"fold{fold}" / pid / PLANES[0],
+        pid, indices[pid, PLANES[0]])
     smodel, _, imgsz = P.create_model_from_env()
     kept, at_call = 0.0, {}
     for p in PLANES:
@@ -983,14 +1014,22 @@ def phase_cli_chain(torch, P, root: Path, counters, dev) -> dict:
           "consensus_volumes_after_each_plane": consensus_after,
           "files": {"datasets": len(want_data), "pred_vols_and_results": len(want_out)},
           "checked_patient": pid, "second_run_wrote_nothing": True,
+          "label_files_equal_the_plain_writer": {"plane": PLANES[0], **labels_checked},
           "kernels_vs_plain_at_a_stage3_call": {
               k: {p: at_call[p][k]["errs"] for p in PLANES} for k in KERNELS},
           "kernels_per_patient": per_call,
           "informational": {"setup_s": setup_s, "plane_s": plane_s, "rerun_s": rerun_s,
+                            "stage1_s_by_plane": stage1_s, "label_bytes": label_bytes,
+                            "ref_writer_s_one_patient_plane": labels_checked["ref_writer_s"],
                             "stage_timings": timings,
                             "stage3_fold_s_by_pipeline_depth": depth_s, **card_label(torch)}})
     return {"modelo": modelo, "vols": vols, "launches": launches, "timings": timings,
             "kernels": per_call}
+
+
+def stage1_total(P) -> float:
+    """Stage 1's seconds so far (``extraer_dataset``'s timer)."""
+    return P.profiling.timings_summary().get("extraer_dataset", {}).get("total_s", 0.0)
 
 
 def phase_cli_default(torch, P, chain_root: Path, root: Path, chain: dict, counters, dev) -> dict:
@@ -2171,7 +2210,7 @@ def main() -> int:
         STRIDES, create_model, create_model_from_env, fold_gray_stem, init_variables,
     )
     from tpu_mslesseg_torch.pipeline import ejecutar_pipeline as orch
-    from tpu_mslesseg_torch.pipeline import logging_setup, rapido
+    from tpu_mslesseg_torch.pipeline import labels, logging_setup, rapido
     from tpu_mslesseg_torch.pipeline.modelo import Modelo
     from tpu_mslesseg_torch.pipeline.paciente import Paciente
     from tpu_mslesseg_torch.pipeline.paths import ConfigPred, ConfigTrain
@@ -2204,7 +2243,7 @@ def main() -> int:
         validate=validate, rapido=rapido, engine_parallel=engine_parallel,
         fold_parallel=fold_parallel, distributed=distributed, mesh=mesh,
         demo=ejecutar_demo, capacidad=entrenar_capacidad, analizar=analizar_pacientes_dsc,
-        native=native, gif=gif, figure=figure, predictor=predictor,
+        native=native, gif=gif, figure=figure, predictor=predictor, labels=labels,
     )
 
     dev = torch.device(DEVICE)
