@@ -6,8 +6,10 @@ Phases, each printing one JSON line (the CLI phases also print the
 pipeline's log lines):
 
 0. device: the card's name and power limit; builds the CUDA sources of the
-   four kernels (one ``nvcc`` a source, started together; the two CLAHE
-   kernels share one).
+   five kernels (one ``nvcc`` a source, started together; the two CLAHE
+   kernels share one): the four that replace the JAX package's Pallas
+   kernels and the Conv blocks' fused eval BatchNorm + SiLU
+   (``csrc/bn_act.cu``), which replaces the plain version's four passes.
 1. kernel: the proto-mask union kernel against its plain PyTorch version on
    the card, at the main path's shapes (64 images, 160x160 proto, 32
    coefficients, 300 detection slots), for four keep patterns: bf16 proto
@@ -46,8 +48,8 @@ pipeline's log lines):
    CLAHE``, YOLO11n-seg, bf16, imgsz 640, umbral 2 and
    ``TPU_MSLESSEG_PALLAS_STEM=1``: two dispatches of 4 patients, the second
    the fifth patient repeated. Checks that every volume/JSON pair and
-   nothing else was written, that all four kernels launched (the CLAHE
-   tile LUTs and blend, the stem, the union), that NMS
+   nothing else was written, that all five kernels launched (the CLAHE
+   tile LUTs and blend, the stem, the union, the fused BN + SiLU), that NMS
    kept detections, that the volumes on disk equal a
    direct ``lote`` of the same groups and the JSONs their counts' metrics.
 7. stem_main_path: phase 6's first group through ``lote`` with the stem
@@ -73,7 +75,13 @@ pipeline's log lines):
    dispatch. Then the whole CLAHE enhancement of a dispatch
    (``enhance_for_model`` on the group's 3 x 200 slices) with both plain
    versions, with the tile-LUT kernel and the plain blend, and with both
-   kernels, timed in turns; the three results are equal.
+   kernels, timed in turns; the three results are equal. Last, the fused
+   BN + SiLU on every Conv output of one served forward (one plane's 200
+   images of phase 7, the stem on, every BatchNorm's terms away from
+   init): each launch against ``bn_act_ref`` within one ulp of bf16 (the
+   elements that differ counted: bit-equal is the aim), the launches a
+   forward, and all of them timed against the plain passes, with their
+   bound (4 bytes an element).
 
 9. cli_chain: the orchestrator CLI through the stage chain. A dataset tree
    ``MSLesSeg-Dataset/train`` with four synthetic 182x218x182 patients (a
@@ -84,14 +92,14 @@ pipeline's log lines):
    in-process for axial, coronal and sagital in turn (stage 0 builds the
    GT tree, then stages 1, 3, 4, 6 a plane, and 5, 6, 7 after the third).
    Checks the whole artifact tree, that the consensus waited for the third
-   plane, that all four kernels launched, that one patient's stage-1 image
+   plane, that all five kernels launched, that one patient's stage-1 image
    PNGs equal the same enhancement on the CPU, that its stage-1 label files
    of the first plane equal, byte for byte, ``write_yolo_seg_label_ref``
    (the reference's walk) on each slice's GT PNG (the plain writer's
    seconds, stage 1's seconds a plane and the label bytes are printed
    beside), its stage-3 masks a direct ``SlicePredictor`` call on the same
    enhanced slices and its stage-4
-   volumes ``reconstruct_volume`` of them, that each of the four kernels
+   volumes ``reconstruct_volume`` of them, that each of the five kernels
    agrees with its plain version on that patient's own stage-3 tensors (50
    images a launch, where the earlier phases hold them at 200 and 600; the
    bounds of phases 1, 4 and 5), timed there too, that every consensus volume is
@@ -102,7 +110,7 @@ pipeline's log lines):
 10. cli_default: ``main([... "--completo"])`` for the three planes on a copy
    of phase 9's inputs and stage-1 output: ``rapido`` serves each fold and
    the chain reduces to skips and aggregation. Checks the volume and JSON
-   tree and the four launch counts, and reports each patient's Dice against
+   tree and the five launch counts, and reports each patient's Dice against
    phase 9's volumes (bf16 results depend on the batch: the chain serves 50
    slices a call, ``rapido`` 200 a plane) and both phases' stage timings.
 
@@ -163,7 +171,7 @@ pipeline's log lines):
    does not: a ``train_figures_15`` line says which), the cadence of every
    micro-step, that ``best.pt`` serves through ``SlicePredictor``
    with the fused stem, every volume/JSON pair of the serve, that the serve
-   launched all four kernels, and that the same command again trains
+   launched all five kernels, and that the same command again trains
    nothing. Prints the batch before and after the dataset rule, the probe's
    peaks, seconds an epoch, a micro-step and a validation pass, images/s
    and the peak memory.
@@ -179,7 +187,7 @@ pipeline's log lines):
    ``_parallel/last.pt`` and every fold's files (three ``results.csv`` rows
    of finite losses; the figures as in phase 15, ``train_figures_16``), every micro-step's cadence and finite losses, that
    the folds took turns, that the pool and validation sets launched
-   CLAHE's kernels and the serve all four, each kernel against its plain
+   CLAHE's kernels and the serve all five, each kernel against its plain
    version on fold 1's served weights and a patient's slices (NMS at the
    validation's confidence, 0.001, so the union holds kept boxes), and that the
    same command again trains nothing. Prints the batch, micro-steps an
@@ -203,12 +211,12 @@ pipeline's log lines):
    case's stage 3 launched the union kernel and the stem (a
    ``demo_kernels`` line) and that stage 1 and 3 wrote through the native
    PNG writer; the stored masks against a direct ``SlicePredictor`` call
-   (equal) and the plain stem and union end to end by Dice (at least
+   (equal) and the plain stem, epilogue and union end to end by Dice (at least
    0.99), both stated vacuous in the line where every served mask is
    empty; the stem and the union against their plain versions on that
    call's tensors; at NMS confidence 0.001 the union's masks against the
    plain union's (equal but within 1e-3 of the threshold) and the plain
-   stem and union's by Dice, at the served threshold and at the median
+   stem, epilogue and union's by Dice, at the served threshold and at the median
    logit inside the kept boxes, where positive pixels are required; the
    GIF's frames against the predictions, the figure's slice from
    ``seleccionar_mejor_corte``, and the files or the
@@ -235,8 +243,9 @@ and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
 patient's three launches of 50 images; the stem's ``scales`` holds phase
 11's rows, bf16 with the f32 instance's ms, plain ms, bound and share beside
-them; ``library_ms`` is null, as no single
-PyTorch call computes any of the four functions), the card's ``nvidia-smi`` name and power limit,
+them; the fused epilogue's ``ms`` is one served forward's, as its
+``work`` says; ``library_ms`` is null, as no single
+PyTorch call computes any of the five functions), the card's ``nvidia-smi`` name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises and the script exits non-zero; without a CUDA device, or outside a
@@ -255,6 +264,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -320,11 +330,18 @@ KERNEL_SOURCES = {
     "clahe_blend": ("tpu_mslesseg_torch/csrc/clahe_tile_lut.cu",
                     "tpu_mslesseg/preproc/clahe_pallas.py:86"),
     "stem": ("tpu_mslesseg_torch/csrc/stem.cu", "tpu_mslesseg/model/stem_pallas.py:149"),
+    "bn_act": ("tpu_mslesseg_torch/csrc/bn_act.cu", "tpu_mslesseg/model/blocks.py:51"),
 }
 KERNELS = tuple(KERNEL_SOURCES)
 SOURCES = tuple(dict.fromkeys(Path(src).stem for src, _ in KERNEL_SOURCES.values()))
 NOTES = {"clahe_blend": "the reference's blend is the XLA apply outside pallas_call "
-                        "(one-hot matmuls on the TPU's MXU), not a Pallas kernel"}
+                        "(one-hot matmuls on the TPU's MXU), not a Pallas kernel",
+         "bn_act": "replaces no Pallas kernel: the reference's Conv block leaves BatchNorm "
+                   "and SiLU to XLA, which fuses them; the port's plain version is four "
+                   "PyTorch passes (y.float(), batch_norm, silu, .to(dtype))"}
+# the unit of work of a kernel's `ms`, where it is not one CLAHE dispatch
+WORKS = {"bn_act": "one plane's served forward of 200 images of 640 (the stem on): "
+                   "every Conv block's epilogue"}
 # the H100 SXM's published peaks (NVIDIA's data sheet: dense rates, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -591,6 +608,78 @@ def summed(works) -> dict:
     return tot
 
 
+def ulps(torch, got, want):
+    """|got - want| in units of the last place of the stored type (bf16 or
+    f32), at the larger magnitude of the two."""
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(w), (e - 1 - bits).clamp(min=-126 - bits))
+    return (g - w).abs() / ulp
+
+
+def epilogue_work(calls) -> dict:
+    """Bytes and operations of the Conv blocks' fused epilogue over recorded
+    calls (conv output, BN terms, act): each conv output read once and each
+    result written once; about 4 f32 operations an element for BN and 4
+    for SiLU (a negation, expf, a sum, a division), off the tensor cores."""
+    moved = sum(2 * y.numel() * y.element_size() for y, _, _ in calls)
+    ops = sum(y.numel() * (8.0 if act else 4.0) for y, _, act in calls)
+    return work_bound(moved, {"f32_ops": (ops, F32_FLOPS)})
+
+
+@contextlib.contextmanager
+def recording_epilogues(P, calls):
+    """For the duration, the Conv blocks' fused epilogue appends a copy of
+    each conv output it is handed, with the BN terms and `act`, to `calls`
+    before it runs."""
+    real = P.bn_act.bn_act
+
+    def record(y, bn, act, out=None):
+        terms = types.SimpleNamespace(**{k: getattr(bn, k) for k in
+                                         ("running_mean", "running_var", "weight", "bias", "eps")})
+        calls.append((y.clone(), terms, act))
+        return real(y, bn, act, out)
+
+    with switched(P.bn_act, "bn_act", record):
+        yield
+
+
+def bn_act_checks(torch, P, calls, reps_k: int, reps_p: int) -> dict:
+    """The fused epilogue on each recorded call, into a fresh output,
+    against its plain version: the elements that differ and the largest
+    difference in ulps of the stored type (at most 1, or this raises); then
+    all the calls timed, kernel against plain, with their bound: {"errs",
+    "work", "ms", "plain_ms", "launches"}."""
+    ba = P.bn_act
+    outs = [torch.empty_like(y) for y, _, _ in calls]
+    errs = {"max_abs_err": 0.0, "max_ulp": 0.0, "elements_differing": 0, "elements": 0}
+    for (y, t, act), o in zip(calls, outs):
+        got, want = ba.bn_act(y, t, act, out=o), ba.bn_act_ref(y, t, act)
+        torch.cuda.synchronize()
+        errs["max_abs_err"] = max(errs["max_abs_err"], float((got.float() - want.float()).abs().max()))
+        errs["max_ulp"] = max(errs["max_ulp"], float(ulps(torch, got, want).max()))
+        errs["elements_differing"] += int((got != want).sum())
+        errs["elements"] += got.numel()
+        del got, want
+    if errs["max_ulp"] > 1.0:
+        raise AssertionError(f"the fused BN + SiLU differs from its plain version by more than "
+                             f"one ulp: {errs}")
+
+    def run_k():
+        for (y, t, act), o in zip(calls, outs):
+            ba.bn_act(y, t, act, out=o)
+
+    def run_p():
+        for y, t, act in calls:
+            ba.bn_act_ref(y, t, act)
+
+    k_ms, p_ms = timed_pair(torch, run_k, run_p, reps_k, reps_p)
+    return {"errs": errs, "work": epilogue_work(calls), "ms": float(np.median(k_ms)),
+            "plain_ms": float(np.median(p_ms)), "kernel_ms_blocks": k_ms, "plain_ms_blocks": p_ms,
+            "launches": len(calls)}
+
+
 @contextlib.contextmanager
 def switched(module, name, value):
     """`module.name` set to `value` for the duration."""
@@ -830,7 +919,7 @@ def phase_enhancement(torch, enhance, slices, dev) -> None:
 
 
 def chain_kernel_checks(torch, P, pred, raw) -> dict:
-    """The four kernels against their plain versions at the shapes one
+    """The five kernels against their plain versions at the shapes one
     stage-3 call gives them (`raw`: one patient's slices of one plane on
     the card, `pred` the plane's ``SlicePredictor``), on that call's own
     tensors, and their times there: {kernel: {"errs", "ms", "plain_ms",
@@ -864,10 +953,12 @@ def chain_kernel_checks(torch, P, pred, raw) -> dict:
                             lambda: P.stem.stem_reference(smodel, pred._stem_w, x), 5, 3)
     out["stem"] = {"errs": errs, "work": stem_work(x, got), "ms": float(np.median(k_ms)),
                    "plain_ms": float(np.median(p_ms))}
-    rec = Recorder(P.mu.mask_union_logits_batch)
-    with torch.inference_mode():
+    rec, epilogues = Recorder(P.mu.mask_union_logits_batch), []
+    with recording_epilogues(P, epilogues), torch.inference_mode():
         P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf, pred.iou,
                            pred.max_det, mask_union=rec, stem_w=pred._stem_w)
+    out["bn_act"] = bn_act_checks(torch, P, epilogues, 3, 2)
+    del epilogues
     call, got = rec.last[:5], rec.last[5]
     want = P.mu.mask_union_logits_ref(*call)
     torch.cuda.synchronize()
@@ -1533,7 +1624,7 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
         if not probe["probed"] or [b for b, _ in rec["peaks"][:2]] != list(P.autobatch.PROBES):
             raise AssertionError(f"batch -1 was not resolved by the card's probe: {rec}")
 
-        # the serve: every volume/JSON pair, all four kernels launched
+        # the serve: every volume/JSON pair, all five kernels launched
         check_tree(tree(root, "pred_vols", "results"), served_tree(modelo, folds),
                    "phase 15: pred_vols/, results/")
         serve_launches = {k: sum(r[k] for r in rec["serve"]) for k in KERNELS}
@@ -1907,7 +1998,7 @@ def held_or_vacuous(positive: int) -> str:
 def demo_stage3_checks(torch, P, pred, u8, stored) -> dict:
     """One demo patient's stage-3 masks (`stored`, from its PNGs) against a
     direct `pred` call on the same enhanced slices `u8` (kernels on: equal),
-    and the whole plain path (plain stem, plain union) at the served
+    and the whole plain path (plain stem, epilogue and union) at the served
     confidence by its Dice; both are vacuous where every served mask is
     empty, and the returned dict says so. Then at NMS confidence
     ``CHECK_CONF``, which keeps boxes after three epochs of training: each
@@ -1927,7 +2018,7 @@ def demo_stage3_checks(torch, P, pred, u8, stored) -> dict:
     out["stem"] = stem_errors(torch, P.stem, smodel, pred._stem_w, x, got, want)
     del got, want
     ys, xs = P.predictor.proto_grid(pred.lb, x.device)
-    with torch.inference_mode():
+    with switched(P.bn_act, "bn_act", P.bn_act.bn_act_ref), torch.inference_mode():
         served = P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf,
                                     pred.iou, pred.max_det, mask_union=P.mu.mask_union_logits_ref)
     plain = P.geometry.from_png_space_batch(P.predictor._bilinear_sample(served, ys, xs)
@@ -1943,8 +2034,9 @@ def demo_stage3_checks(torch, P, pred, u8, stored) -> dict:
     with torch.inference_mode():
         P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, CHECK_CONF, pred.iou,
                            pred.max_det, mask_union=rec, stem_w=pred._stem_w)
-        P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, CHECK_CONF, pred.iou,
-                           pred.max_det, mask_union=rec_plain)
+        with switched(P.bn_act, "bn_act", P.bn_act.bn_act_ref):
+            P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, CHECK_CONF,
+                               pred.iou, pred.max_det, mask_union=rec_plain)
     call, got = rec.last[:5], rec.last[5]
     want = P.mu.mask_union_logits_ref(*call)
     torch.cuda.synchronize()
@@ -2182,6 +2274,49 @@ def phase_demo(torch, P, root: Path, counters, dev, card, global_rows) -> dict:
     return {"launches": launches, "capacity_launches": cap_launches}
 
 
+def phase_bn_act(torch, P, smodel, x, dev, card) -> dict:
+    """The last part of phase 8: the Conv blocks' fused BN + SiLU
+    (``model/bn_act.py``) on every Conv output of one served forward of
+    YOLO11n-seg at 640 in bf16 (the stem on; `x` one plane's 200
+    letterboxed images), every BatchNorm's terms away from init: each
+    launch against the plain version (within one ulp of bf16, the elements
+    that differ counted), the launches a forward, and all of them timed
+    against the plain passes with their bound (4 bytes an element)."""
+    sd = P.init_variables(smodel, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    for k, v in sd.items():
+        if k.endswith(".bn.running_var"):
+            v.copy_(torch.rand(v.shape, generator=gen) * 3 + 1e-4)
+        elif k.endswith((".bn.running_mean", ".bn.bias")):
+            v.copy_(torch.randn(v.shape, generator=gen) * 0.5)
+        elif k.endswith(".bn.weight"):
+            v.copy_(1 + 0.3 * torch.randn(v.shape, generator=gen))
+    variables = P.predictor.prepare_variables(smodel, sd, dev)
+    calls = []
+    before = P.bn_act.LAUNCHES
+    with recording_epilogues(P, calls), torch.inference_mode():
+        P.detect_and_union(smodel, variables, x[..., None], IMGSZ, 0.25, 0.7, 300,
+                           stem_w=P.stem.stem_weights(variables))
+    torch.cuda.synchronize()
+    launches = P.bn_act.LAUNCHES - before
+    if launches != len(calls) or launches < 1:
+        raise AssertionError(f"a served forward launched the fused epilogue {launches} times "
+                             f"for {len(calls)} Conv blocks")
+    checks = bn_act_checks(torch, P, calls, 3, 2)
+    what = f"one served forward of {x.shape[0]} images of {IMGSZ}: {launches} launches"
+    emit_bound("bn_act", checks["work"], checks["ms"], launches, what)
+    emit({"phase": "timing", "kernel": "bn_act", "work": what, "dtype": "bfloat16",
+          "launches_per_forward": launches,
+          "channels": sorted({int(y.shape[1]) for y, _, _ in calls}),
+          "maps": sorted({f"{y.shape[2]}x{y.shape[3]}" for y, _, _ in calls}),
+          "nchw_launches": sum(bool(y.is_contiguous()) for y, _, _ in calls),
+          "without_act": sum(not act for _, _, act in calls),
+          **checks["errs"], "kernel_ms": checks["kernel_ms_blocks"],
+          "plain_ms": checks["plain_ms_blocks"],
+          "share_of_bound": checks["work"]["bound_ms"] / checks["ms"], **card})
+    return checks
+
+
 def main() -> int:
     import torch
 
@@ -2195,7 +2330,6 @@ def main() -> int:
         return 2
     os.environ.update(SERVING_ENV)  # read when the port's modules import
     sys.path.insert(0, str(ROOT))
-    import types
 
     from tpu_mslesseg_torch import _build
     from tpu_mslesseg_torch.core import geometry, profiling
@@ -2205,7 +2339,7 @@ def main() -> int:
     from tpu_mslesseg_torch.infer.predictor import SlicePredictor, detect_and_union
     from tpu_mslesseg_torch.infer.reconstruct import consensus_vote, reconstruct_volume
     from tpu_mslesseg_torch.io import nifti, png
-    from tpu_mslesseg_torch.model import stem
+    from tpu_mslesseg_torch.model import bn_act, stem
     from tpu_mslesseg_torch.model.yolo11 import (
         STRIDES, create_model, create_model_from_env, fold_gray_stem, init_variables,
     )
@@ -2237,7 +2371,7 @@ def main() -> int:
         mx=mx, consensus_vote=consensus_vote, reconstruct_volume=reconstruct_volume,
         geometry=geometry, enhance=enhance, SlicePredictor=SlicePredictor,
         profiling=profiling, orch=orch, gen=gen_stage, logging_setup=logging_setup,
-        mu=mu, stem=stem, clahe=clahe, detect_and_union=detect_and_union,
+        mu=mu, stem=stem, clahe=clahe, bn_act=bn_act, detect_and_union=detect_and_union,
         ConsensusPredictor=ConsensusPredictor, fold_gray_stem=fold_gray_stem,
         trainer=trainer, synthetic_batch=train_batch, autobatch=autobatch, engine=engine,
         validate=validate, rapido=rapido, engine_parallel=engine_parallel,
@@ -2253,7 +2387,8 @@ def main() -> int:
     card = card_label(torch)
     # each kernel's launch count: (module, counter)
     counters = {"mask_union": (mu, "LAUNCHES"), "clahe_tile_lut": (clahe, "LAUNCHES"),
-                "clahe_blend": (clahe, "BLEND_LAUNCHES"), "stem": (stem, "LAUNCHES")}
+                "clahe_blend": (clahe, "BLEND_LAUNCHES"), "stem": (stem, "LAUNCHES"),
+                "bn_act": (bn_act, "LAUNCHES")}
     max_err = dict.fromkeys(KERNELS, 0.0)
 
     # ---- phase 0: device and build -------------------------------------
@@ -2311,7 +2446,7 @@ def main() -> int:
     zero_launches(counters)
     counts, cons, vols = cp.lote(slices, idx, gts)
     torch.cuda.synchronize()
-    gc_launches = read_launches(counters)  # the GC path holds the union kernel only
+    gc_launches = read_launches(counters)  # the GC path: the union and the epilogue
     launches = gc_launches["mask_union"]
     if launches < 1:
         raise AssertionError("the main path did not launch the mask-union kernel")
@@ -2766,6 +2901,7 @@ def main() -> int:
         5, 3, lambda p: stem_work(stem_x[p], stem.stem_apply(smodel, stem_w[p], stem_x[p])),
         lambda p: {"m": int(stem_x[p].shape[0]), "imgsz": IMGSZ, **stem_inputs[p]},
     )
+    epilogue_x = stem_x[PLANES[0]]  # the last part of phase 8: one plane's served input
     del stem_x, stem_w
     torch.cuda.empty_cache()
 
@@ -2785,6 +2921,16 @@ def main() -> int:
                "one launch of 600 random images")
     emit({"phase": "timing", "kernel": "stem", "m": 600, "imgsz": IMGSZ, "dtype": "bfloat16",
           **errs, "kernel_ms": k_ms, "plain_ms": p_ms, **card})
+    del x
+    torch.cuda.empty_cache()
+
+    # the Conv blocks' fused BN + SiLU on every Conv output of one served forward
+    epilogue = phase_bn_act(torch, P, smodel, epilogue_x, dev, card)
+    timing["bn_act"] = (epilogue["ms"], epilogue["plain_ms"])
+    works["bn_act"] = epilogue["work"]
+    max_err["bn_act"] = epilogue["errs"]["max_abs_err"]
+    del epilogue_x, epilogue
+    torch.cuda.empty_cache()
 
     # ---- phases 9 and 10: the orchestrator CLI ----------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
@@ -2860,7 +3006,7 @@ def main() -> int:
          "max_abs_err": max_err[name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": works[name]["bound_ms"], "bound_by": works[name]["bound_by"],
-         "library_ms": None, "work": dispatch,
+         "library_ms": None, "work": WORKS.get(name, dispatch),
          "cli_chain": chain["kernels"][name],
          **({"scales": stem_scales} if name == "stem" else {}),
          **({"ms_background": timing[(name, "background")][0]}

@@ -16,14 +16,17 @@ roundings, each FMA rounded once); the stem in f32 atol and rtol 2e-5 (cuDNN's
 TF32 off), in bf16 ``stem.bf16_error_bound``: one bf16 ulp of b1's conv
 sum carried through BN and SiLU, plus one ulp of the output (the two sum in
 different orders, so a conv sum may round one ulp apart, and where BN's
-running mean cancels most of it that ulp exceeds the output's).
+running mean cancels most of it that ulp exceeds the output's); the Conv
+block's fused BN + SiLU within one ulp of the stored type (bit-equal is
+the aim: the kernel copies the plain version's roundings; each case prints
+how many elements differ).
 """
 
 import pytest
 import torch
 
 from tpu_mslesseg_torch.infer import mask_union as mu
-from tpu_mslesseg_torch.model import stem
+from tpu_mslesseg_torch.model import blocks, bn_act, stem
 from tpu_mslesseg_torch.model.yolo11 import create_model, fold_gray_stem, init_variables
 from tpu_mslesseg_torch.preproc import clahe, enhance
 
@@ -376,6 +379,133 @@ def test_stem_without_an_instance_raises_on_the_card(cuda):
     with pytest.raises(RuntimeError, match="no kernel instance"):
         stem.stem_apply(model, narrow, torch.zeros((1, 64, 64), device=cuda))
     assert stem.LAUNCHES == before
+
+
+# --------------------------------------------------------------------------
+# the Conv block's eval epilogue (BN + SiLU)
+# --------------------------------------------------------------------------
+
+
+def _bn_case(c, seed, dev):
+    """A BatchNorm2d (eps 1e-3) on `dev` away from its init; a third of the
+    variances under eps, as trained ones can be."""
+    gen = torch.Generator().manual_seed(seed)
+    bn = torch.nn.BatchNorm2d(c, eps=1e-3).eval()
+    var = torch.rand(c, generator=gen) * 3 + 1e-2
+    var[::3] = torch.rand(c, generator=gen)[::3] * 1e-4
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(c, generator=gen) * 2)
+        bn.running_var.copy_(var)
+        bn.weight.copy_(1 + 0.3 * torch.randn(c, generator=gen))
+        bn.bias.copy_(0.5 * torch.randn(c, generator=gen))
+    return bn.to(dev)
+
+
+def _ulps(got, want):
+    """|got - want| in units of the last place of the stored type, at the
+    larger magnitude of the two."""
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(w), (e - 1 - bits).clamp(min=-126 - bits))
+    return (g - w).abs() / ulp
+
+
+# (n, c, h, w, storage offset in elements): the model's narrowest and widest
+# channels at its largest and smallest maps; a total size that is not a
+# multiple of 8; an offset that breaks 16-byte alignment
+_BN_ACT_SHAPES = [(4, 8, 320, 320, 0), (3, 256, 20, 20, 0), (2, 32, 160, 160, 0),
+                  (2, 256, 160, 160, 0), (3, 12, 7, 9, 0), (2, 64, 20, 20, 3)]
+
+
+@pytest.mark.parametrize("n,c,h,w,offset", _BN_ACT_SHAPES)
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("fmt", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_kernel_matches_plain(cuda, dtype, fmt, act, n, c, h, w, offset):
+    gen = torch.Generator().manual_seed(c * h + offset)
+    flat = (torch.randn(n * c * h * w + offset, generator=gen) * 4).to(cuda, dtype)[offset:]
+    y = (flat.view(n, h, w, c).permute(0, 3, 1, 2) if fmt == "channels_last"
+         else flat.view(n, c, h, w))
+    assert bn_act.layout(y) == fmt
+    bn = _bn_case(c, c + h, cuda)
+    want = bn_act.bn_act_ref(y, bn, act)
+    before = bn_act.LAUNCHES
+    got = bn_act.bn_act(y, bn, act)
+    torch.cuda.synchronize()
+    assert bn_act.LAUNCHES == before + 1
+    assert got.data_ptr() == y.data_ptr() and got.dtype == dtype  # in place
+    differing = int((got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+                     != want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+                    .sum())
+    worst = float(_ulps(got, want).max())
+    print(f"bn_act {dtype} {fmt} act={act} {(n, c, h, w)} offset {offset}: "
+          f"{differing} of {got.numel()} elements differ, at most {worst} ulp")
+    assert worst <= 1.0
+
+
+@pytest.mark.parametrize("act", [True, False])
+def test_bn_act_kernel_matches_plain_without_cudnn(cuda, act):
+    """With cuDNN off, the plain version's batch norm is ATen's on a
+    channels-last input too, and so is the kernel's arithmetic."""
+    gen = torch.Generator().manual_seed(7)
+    y = (torch.randn((2, 64, 40, 40), generator=gen) * 4).to(cuda)
+    y = y.contiguous(memory_format=torch.channels_last)
+    bn = _bn_case(64, 8, cuda)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = bn_act.bn_act_ref(y, bn, act)
+        got = bn_act.bn_act(y, bn, act)
+    torch.cuda.synchronize()
+    assert float(_ulps(got, want).max()) <= 1.0
+
+
+def test_bn_act_kernel_writes_into_out(cuda):
+    gen = torch.Generator().manual_seed(11)
+    y = (torch.randn((2, 256, 20, 20), generator=gen) * 4).to(cuda, torch.bfloat16)
+    y = y.contiguous(memory_format=torch.channels_last)
+    bn = _bn_case(256, 12, cuda)
+    keep = y.clone()
+    out = torch.empty_like(y)
+    got = bn_act.bn_act(y, bn, True, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.equal(y, keep)
+    assert float(_ulps(got, bn_act.bn_act_ref(y, bn, True)).max()) <= 1.0
+    with pytest.raises(ValueError, match="out must be like y"):
+        bn_act.bn_act(y, bn, True, out=torch.empty_like(y, memory_format=torch.contiguous_format))
+
+
+def test_conv_eval_launches_the_bn_act_kernel_without_autograd(cuda):
+    conv = blocks.Conv(16, 32, 3, 1).to(cuda)
+    conv.bn = _bn_case(32, 9, cuda)
+    x = torch.rand((2, 16, 40, 40), generator=torch.Generator().manual_seed(9)).to(cuda)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    before = bn_act.LAUNCHES
+    with torch.inference_mode():
+        got = conv(x)
+    torch.cuda.synchronize()
+    assert bn_act.LAUNCHES == before + 1
+    with torch.enable_grad():
+        plain = conv(x)  # autograd on: the plain version, no launch
+    assert bn_act.LAUNCHES == before + 1 and plain.requires_grad
+    assert torch.equal(got, plain.detach())
+
+
+def test_bn_act_wrapper_checks_its_inputs(cuda):
+    bn = _bn_case(8, 10, cuda)
+    y = torch.zeros((2, 8, 4, 4), device=cuda)
+    before = bn_act.LAUNCHES
+    with pytest.raises(ValueError, match="BN terms"):  # terms off the activation's device
+        bn_act.bn_act(y, bn.cpu(), True)
+    bn = bn.to(cuda)
+    with pytest.raises(ValueError, match="channels-last or NCHW"):
+        bn_act.bn_act(y[:, :, :, :2], bn, True)
+    with pytest.raises(TypeError):
+        bn_act.bn_act(y.half(), bn, True)
+    with pytest.raises(ValueError):
+        bn_act.bn_act(y[:, :4].contiguous(), bn, True)  # 4 channels against 8 terms
+    assert bn_act.LAUNCHES == before
+    cpu = bn_act.bn_act(y.cpu(), bn.cpu(), True)  # a CPU tensor: the plain version
+    assert bn_act.LAUNCHES == before and cpu.device.type == "cpu"
 
 
 # --------------------------------------------------------------------------

@@ -943,8 +943,9 @@ def test_kernels_named_for_a_stage():
 
     assert kernels_de(None) == () and kernels_de("GC") == ()
     assert kernels_de("CLAHE") == ("clahe_tile_lut",)
-    assert kernels_de(None, union=True) == ("mask_union",)
-    assert kernels_de("CLAHE", stem=True, union=True) == ("clahe_tile_lut", "stem", "mask_union")
+    assert kernels_de(None, union=True) == ("mask_union", "bn_act")
+    assert kernels_de("CLAHE", stem=True, union=True) == ("clahe_tile_lut", "stem", "mask_union",
+                                                           "bn_act")
     # every name is a source the build knows
     csrc = Path(tgen.__file__).resolve().parents[2] / "csrc"
     assert all((csrc / f"{n}.cu").is_file() for n in kernels_de("CLAHE", True, True))

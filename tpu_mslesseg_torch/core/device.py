@@ -39,15 +39,15 @@ def exigir(device, kernels=()) -> torch.device:
 
 def kernels_de(mejora, stem: bool = False, union: bool = False) -> tuple:
     """The CUDA sources a stage launches: CLAHE's under ``--mejora CLAHE``,
-    the fused stem's when it is switched on, the mask union's when the stage
-    predicts."""
+    the fused stem's when it is switched on, the mask union's and the Conv
+    blocks' eval epilogue's when the stage predicts."""
     names = []
     if mejora == "CLAHE":
         names.append("clahe_tile_lut")
     if stem:
         names.append("stem")
     if union:
-        names.append("mask_union")
+        names += ["mask_union", "bn_act"]
     return tuple(names)
 
 

@@ -8,9 +8,10 @@ ultralytics (``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m``, ``attn``,
 Dtype rules are the reference's, not torch autocast's. Parameters are
 kept in float32 and cast to the compute dtype at each convolution (flax's
 ``promote_dtype``). BatchNorm (eps 1e-3) and SiLU run in float32, and the
-block output is cast back to the compute dtype. The attention softmax runs
-in float32 and is cast back. Residual adds and concats therefore run in
-the compute dtype.
+block output is cast back to the compute dtype (in eval with autograd off
+in one pass, ``model/bn_act.py``: a fused kernel on the card). The
+attention softmax runs in float32 and is cast back. Residual adds and
+concats therefore run in the compute dtype.
 
 In train mode (``module.train()``) a block normalises with the batch's own
 statistics and updates the running ones, both as the reference's flax
@@ -38,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_mslesseg_torch.model import bn_act
+
 _BN_AXIS = contextvars.ContextVar("batch_norm_axis", default=None)
 
 
@@ -64,15 +67,16 @@ class Conv(nn.Module):
         self.eval()  # a block serves unless a trainer calls ``.train()``
 
     def forward(self, x):
+        """In eval mode with autograd off (serving, validation) the epilogue
+        is ``bn_act.bn_act``: the fused kernel on a CUDA tensor, the plain
+        version on the CPU. An eval call with autograd on takes the plain
+        version ``bn_act.bn_act_ref``, which autograd can differentiate: the
+        kernel has no backward."""
         y = self.conv._conv_forward(x, self.conv.weight.to(x.dtype), None)
-        bn = self.bn
-        if self.training:
-            y = self._batch_norm_train(y.float())
-        else:
-            y = F.batch_norm(
-                y.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                False, 0.0, bn.eps,
-            )
+        if not self.training:
+            epilogue = bn_act.bn_act_ref if torch.is_grad_enabled() else bn_act.bn_act
+            return epilogue(y, self.bn, self.act)
+        y = self._batch_norm_train(y.float())
         if self.act:
             y = F.silu(y)
         return y.to(x.dtype)
