@@ -6,10 +6,13 @@ Phases, each printing one JSON line (the CLI phases also print the
 pipeline's log lines):
 
 0. device: the card's name and power limit; builds the CUDA sources of the
-   five kernels (one ``nvcc`` a source, started together; the two CLAHE
+   six kernels (one ``nvcc`` a source, started together; the two CLAHE
    kernels share one): the four that replace the JAX package's Pallas
-   kernels and the Conv blocks' fused eval BatchNorm + SiLU
-   (``csrc/bn_act.cu``), which replaces the plain version's four passes.
+   kernels, the Conv blocks' fused eval BatchNorm + SiLU
+   (``csrc/bn_act.cu``), which replaces the plain version's four passes, and
+   NMS's suppression (``csrc/nms.cu``), which keeps on the card the fixpoint
+   that the JAX package runs in a ``lax.while_loop`` and the plain version
+   from the host.
 1. kernel: the proto-mask union kernel against its plain PyTorch version on
    the card, at the main path's shapes (64 images, 160x160 proto, 32
    coefficients, 300 detection slots), for four keep patterns: bf16 proto
@@ -48,9 +51,9 @@ pipeline's log lines):
    CLAHE``, YOLO11n-seg, bf16, imgsz 640, umbral 2 and
    ``TPU_MSLESSEG_PALLAS_STEM=1``: two dispatches of 4 patients, the second
    the fifth patient repeated. Checks that every volume/JSON pair and
-   nothing else was written, that all five kernels launched (the CLAHE
-   tile LUTs and blend, the stem, the union, the fused BN + SiLU), that NMS
-   kept detections, that the volumes on disk equal a
+   nothing else was written, that all six kernels launched (the CLAHE
+   tile LUTs and blend, the stem, the union, the fused BN + SiLU, NMS's
+   suppression), that NMS kept detections, that the volumes on disk equal a
    direct ``lote`` of the same groups and the JSONs their counts' metrics.
 7. stem_main_path: phase 6's first group through ``lote`` with the stem
    off: per-plane and consensus Dice against the stem-on run (the consensus
@@ -81,7 +84,19 @@ pipeline's log lines):
    init): each launch against ``bn_act_ref`` within one ulp of bf16 (the
    elements that differ counted: bit-equal is the aim), the launches a
    forward, and all of them timed against the plain passes, with their
-   bound (4 bytes an element).
+   bound (4 bytes an element). NMS's part: the three ``nms_batch`` calls of
+   phase 7's dispatch (200 images, 8,400 anchors, K = 300, recorded as the
+   predictor made them) through the kernel against the plain suppression,
+   keep, indices, boxes and scores bit for bit, with the plain fixpoint's
+   steps; each call's suppression timed (the kernel as CUDA-graph replays,
+   the plain version by events around its host loop) with its bound (the
+   boxes, ``valid`` and ``keep`` once; 14 float32 operations for each pair
+   of valid candidates); then ``nms_checks``: the first call at NMS
+   confidence 0.001 and with no valid candidate, a chain of 250 links, pairs
+   at, one ulp above and one ulp below the thresholds 0.7, 0.3 and 0.45
+   (only those above suppress: the comparison in float32), and the first
+   call under ``torch.cuda.set_sync_debug_mode("error")``: through the
+   kernel no sync, through the plain version (the control) one raised.
 
 9. cli_chain: the orchestrator CLI through the stage chain. A dataset tree
    ``MSLesSeg-Dataset/train`` with four synthetic 182x218x182 patients (a
@@ -92,14 +107,14 @@ pipeline's log lines):
    in-process for axial, coronal and sagital in turn (stage 0 builds the
    GT tree, then stages 1, 3, 4, 6 a plane, and 5, 6, 7 after the third).
    Checks the whole artifact tree, that the consensus waited for the third
-   plane, that all five kernels launched, that one patient's stage-1 image
+   plane, that all six kernels launched, that one patient's stage-1 image
    PNGs equal the same enhancement on the CPU, that its stage-1 label files
    of the first plane equal, byte for byte, ``write_yolo_seg_label_ref``
    (the reference's walk) on each slice's GT PNG (the plain writer's
    seconds, stage 1's seconds a plane and the label bytes are printed
    beside), its stage-3 masks a direct ``SlicePredictor`` call on the same
    enhanced slices and its stage-4
-   volumes ``reconstruct_volume`` of them, that each of the five kernels
+   volumes ``reconstruct_volume`` of them, that each of the six kernels
    agrees with its plain version on that patient's own stage-3 tensors (50
    images a launch, where the earlier phases hold them at 200 and 600; the
    bounds of phases 1, 4 and 5), timed there too, that every consensus volume is
@@ -110,7 +125,7 @@ pipeline's log lines):
 10. cli_default: ``main([... "--completo"])`` for the three planes on a copy
    of phase 9's inputs and stage-1 output: ``rapido`` serves each fold and
    the chain reduces to skips and aggregation. Checks the volume and JSON
-   tree and the five launch counts, and reports each patient's Dice against
+   tree and the six launch counts, and reports each patient's Dice against
    phase 9's volumes (bf16 results depend on the batch: the chain serves 50
    slices a call, ``rapido`` 200 a plane) and both phases' stage timings.
 
@@ -177,7 +192,7 @@ pipeline's log lines):
    does not: a ``train_figures_15`` line says which), the cadence of every
    micro-step, that ``best.pt`` serves through ``SlicePredictor``
    with the fused stem, every volume/JSON pair of the serve, that the serve
-   launched all five kernels, and that the same command again trains
+   launched all six kernels, and that the same command again trains
    nothing. Prints the batch before and after the dataset rule, the probe's
    peaks, seconds an epoch, a micro-step and a validation pass, images/s
    and the peak memory.
@@ -193,7 +208,7 @@ pipeline's log lines):
    ``_parallel/last.pt`` and every fold's files (three ``results.csv`` rows
    of finite losses; the figures as in phase 15, ``train_figures_16``), every micro-step's cadence and finite losses, that
    the folds took turns, that the pool and validation sets launched
-   CLAHE's kernels and the serve all five, each kernel against its plain
+   CLAHE's kernels and the serve all six, each kernel against its plain
    version on fold 1's served weights and a patient's slices (NMS at the
    validation's confidence, 0.001, so the union holds kept boxes), and that the
    same command again trains nothing. Prints the batch, micro-steps an
@@ -251,7 +266,9 @@ patient's three launches of 50 images; the stem's ``scales`` holds phase
 11's rows, bf16 with the f32 instance's ms, plain ms, bound and share beside
 them; the fused epilogue's ``ms`` is one served forward's, as its
 ``work`` says; ``library_ms`` is null, as no single
-PyTorch call computes any of the five functions), the card's ``nvidia-smi`` name and power limit,
+PyTorch call computes any of the six functions: ``torchvision.ops.nms``,
+where installed, is a dynamic-shape kernel whose ragged result is another
+function, and the card's machine has no torchvision), the card's ``nvidia-smi`` name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises and the script exits non-zero; without a CUDA device, or outside a
@@ -337,6 +354,7 @@ KERNEL_SOURCES = {
                     "tpu_mslesseg/preproc/clahe_pallas.py:86"),
     "stem": ("tpu_mslesseg_torch/csrc/stem.cu", "tpu_mslesseg/model/stem_pallas.py:149"),
     "bn_act": ("tpu_mslesseg_torch/csrc/bn_act.cu", "tpu_mslesseg/model/blocks.py:51"),
+    "nms": ("tpu_mslesseg_torch/csrc/nms.cu", "tpu_mslesseg/infer/nms.py:68 lax.while_loop"),
 }
 KERNELS = tuple(KERNEL_SOURCES)
 SOURCES = tuple(dict.fromkeys(Path(src).stem for src, _ in KERNEL_SOURCES.values()))
@@ -344,7 +362,12 @@ NOTES = {"clahe_blend": "the reference's blend is the XLA apply outside pallas_c
                         "(one-hot matmuls on the TPU's MXU), not a Pallas kernel",
          "bn_act": "replaces no Pallas kernel: the reference's Conv block leaves BatchNorm "
                    "and SiLU to XLA, which fuses them; the port's plain version is four "
-                   "PyTorch passes (y.float(), batch_norm, silu, .to(dtype))"}
+                   "PyTorch passes (y.float(), batch_norm, silu, .to(dtype))",
+         "nms": "replaces no Pallas kernel: the reference's suppression fixpoint is XLA's "
+                "lax.while_loop, whose test stays on the device; the port's plain version "
+                "runs its steps from the host, one bool read back a step. library_ms: none, "
+                "torchvision.ops.nms is not installed and is a sequential, dynamic-shape "
+                "kernel"}
 # the unit of work of a kernel's `ms`, where it is not one CLAHE dispatch
 WORKS = {"bn_act": "one plane's served forward of 200 images of 640 (the stem on): "
                    "every Conv block's epilogue"}
@@ -686,6 +709,95 @@ def bn_act_checks(torch, P, calls, reps_k: int, reps_p: int) -> dict:
             "launches": len(calls)}
 
 
+# NMS: the deep chain's links (the plain fixpoint takes about a step a link),
+# the thresholds of the pairs at and beside the threshold (0.3 rounds up in
+# float32, so it tells a float32 comparison from a float64 one), and the
+# float32 operations of an IoU against the threshold (two max, two min, two
+# differences and two clamps for the overlap, a product, a sum, a
+# difference, a clamp, the division, the comparison)
+NMS_CHAIN = 250
+NMS_PAIR_THRESHOLDS = (0.7, 0.3, 0.45)
+NMS_OPS_PER_PAIR = 14
+
+
+@contextlib.contextmanager
+def recording_nms(P, calls):
+    """For the duration, each ``nms_batch`` call of the predictors appends
+    {"args": its arguments, "suppress": (top boxes, valid, iou) as its
+    suppression got them} to `calls`."""
+    real_batch, real_suppress = P.nms.nms_batch, P.nms.suppress
+
+    def batch(*args):
+        calls.append({"args": args})
+        return real_batch(*args)
+
+    def suppress(top, valid, iou):
+        calls[-1]["suppress"] = (top, valid, iou)
+        return real_suppress(top, valid, iou)
+
+    with switched(P.predictor, "nms_batch", batch), switched(P.nms, "suppress", suppress):
+        yield
+
+
+def nms_work(top, valid) -> dict:
+    """Bytes and operations of one suppression launch: the top boxes and
+    `valid` read once, keep written once; an IoU against the threshold for
+    each pair of valid candidates (``NMS_OPS_PER_PAIR`` float32 operations,
+    the division counted as one), off the tensor cores."""
+    n = valid.sum(1).double()
+    pairs = float((n * (n - 1) / 2).sum())
+    return work_bound(nbytes(top, valid) + valid.numel(),
+                      {"f32_ops": (NMS_OPS_PER_PAIR * pairs, F32_FLOPS)})
+
+
+def nms_against_plain(torch, P, args) -> dict:
+    """``nms_batch(*args)`` through the kernel against the same call with
+    the plain suppression, both on the card: keep, indices, boxes and scores
+    bit for bit, or this raises. Returns the counts and the plain fixpoint's
+    steps."""
+    steps = []
+
+    def plain(top, valid, iou):
+        keep, n = P.nms.suppress_ref_steps(top, valid, iou)
+        steps.append(n)
+        return keep
+
+    got = P.nms.nms_batch(*args)
+    with switched(P.nms, "suppress", plain):
+        want = P.nms.nms_batch(*args)
+    torch.cuda.synchronize()
+    differing = sum(int((g != w).sum()) for g, w in zip(got, want))
+    if differing:
+        raise AssertionError(f"NMS through the kernel differs from the plain version in "
+                             f"{differing} elements (conf {args[2]}, iou {args[3]})")
+    keep = got[2]
+    return {"images": int(keep.shape[0]), "kept_per_image": float(keep.sum()) / keep.shape[0],
+            "plain_steps": steps[0], "elements_differing": 0}
+
+
+def nms_checks(torch, P, calls, reps_k: int, reps_p: int) -> dict:
+    """Each recorded ``nms_batch`` call (``recording_nms``) against the plain
+    version (``nms_against_plain``), then its suppression timed: the
+    kernel's as CUDA-graph replays (the wrapper's host cost exceeds the
+    kernel), the plain version by events around its host loop. Returns
+    {"errs", "work", "ms", "plain_ms", "call_ms"}, summed over the calls."""
+    errs = {"max_abs_err": 0.0, "elements_differing": 0, "plain_steps": []}
+    ms = plain_ms = call_ms = 0.0
+    for c in calls:
+        read = nms_against_plain(torch, P, c["args"])
+        errs["plain_steps"].append(read["plain_steps"])
+        top, valid, iou = c["suppress"]
+        run_k = lambda: P.nms.suppress(top, valid, iou)
+        k_ms, p_ms = timed_pair(torch, run_k, lambda: P.nms.suppress_ref(top, valid, iou),
+                                reps_k, reps_p)
+        ms += graph_ms(torch, run_k, reps_k)
+        plain_ms += float(np.median(p_ms))
+        call_ms += float(np.median(k_ms))
+    errs["kept_per_image"] = read["kept_per_image"]
+    return {"errs": errs, "work": summed([nms_work(*c["suppress"][:2]) for c in calls]),
+            "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms}
+
+
 @contextlib.contextmanager
 def switched(module, name, value):
     """`module.name` set to `value` for the duration."""
@@ -925,7 +1037,7 @@ def phase_enhancement(torch, enhance, slices, dev) -> None:
 
 
 def chain_kernel_checks(torch, P, pred, raw) -> dict:
-    """The five kernels against their plain versions at the shapes one
+    """The six kernels against their plain versions at the shapes one
     stage-3 call gives them (`raw`: one patient's slices of one plane on
     the card, `pred` the plane's ``SlicePredictor``), on that call's own
     tensors, and their times there: {kernel: {"errs", "ms", "plain_ms",
@@ -959,12 +1071,13 @@ def chain_kernel_checks(torch, P, pred, raw) -> dict:
                             lambda: P.stem.stem_reference(smodel, pred._stem_w, x), 5, 3)
     out["stem"] = {"errs": errs, "work": stem_work(x, got), "ms": float(np.median(k_ms)),
                    "plain_ms": float(np.median(p_ms))}
-    rec, epilogues = Recorder(P.mu.mask_union_logits_batch), []
-    with recording_epilogues(P, epilogues), torch.inference_mode():
+    rec, epilogues, nms_calls = Recorder(P.mu.mask_union_logits_batch), [], []
+    with recording_epilogues(P, epilogues), recording_nms(P, nms_calls), torch.inference_mode():
         P.detect_and_union(smodel, pred.variables, x[..., None], pred.imgsz, pred.conf, pred.iou,
                            pred.max_det, mask_union=rec, stem_w=pred._stem_w)
     out["bn_act"] = bn_act_checks(torch, P, epilogues, 3, 2)
-    del epilogues
+    out["nms"] = nms_checks(torch, P, nms_calls, 20, 3)
+    del epilogues, nms_calls
     call, got = rec.last[:5], rec.last[5]
     want = P.mu.mask_union_logits_ref(*call)
     torch.cuda.synchronize()
@@ -1688,7 +1801,7 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
         if not probe["probed"] or [b for b, _ in rec["peaks"][:2]] != list(P.autobatch.PROBES):
             raise AssertionError(f"batch -1 was not resolved by the card's probe: {rec}")
 
-        # the serve: every volume/JSON pair, all five kernels launched
+        # the serve: every volume/JSON pair, all six kernels launched
         check_tree(tree(root, "pred_vols", "results"), served_tree(modelo, folds),
                    "phase 15: pred_vols/, results/")
         serve_launches = {k: sum(r[k] for r in rec["serve"]) for k in KERNELS}
@@ -2338,6 +2451,56 @@ def phase_demo(torch, P, root: Path, counters, dev, card, global_rows) -> dict:
     return {"launches": launches, "capacity_launches": cap_launches}
 
 
+def phase_nms(torch, P, calls, dev) -> dict:
+    """Phase 8's NMS checks beyond the dispatch's own three calls (`calls`,
+    from ``recording_nms``), kernel against plain bit for bit: the first
+    call's boxes and scores at NMS confidence ``CHECK_CONF`` (the
+    validation's: nearly every candidate valid) and at 1.0 (none valid); a
+    chain of ``NMS_CHAIN`` links among 8,400 anchors (the plain fixpoint
+    must take a step a link); pairs of boxes at, one ulp above and one
+    ulp below each of ``NMS_PAIR_THRESHOLDS``, whose second box must go only
+    above it (the comparison in float32). Then that call under
+    ``torch.cuda.set_sync_debug_mode("error")``: through the kernel it
+    raises nothing; through the plain version, the control, it raises."""
+    boxes, scores, _, iou, max_det = calls[0]["args"]
+    read = {"conf_0.001": nms_against_plain(torch, P, (boxes, scores, CHECK_CONF, iou, max_det)),
+            "none_valid": nms_against_plain(torch, P, (boxes, scores, 1.0, iou, max_det))}
+    if read["none_valid"]["kept_per_image"] != 0.0:
+        raise AssertionError("NMS kept a candidate with no valid score")
+    b, sc = P.nms_cases.chain(NMS_CHAIN, boxes.shape[1])
+    read["chain"] = nms_against_plain(torch, P, (torch.from_numpy(b).to(dev),
+                                                 torch.from_numpy(sc).to(dev), 0.25, iou, max_det))
+    if read["chain"]["plain_steps"] < NMS_CHAIN:
+        raise AssertionError(f"the chain took the plain fixpoint {read['chain']['plain_steps']} "
+                             f"steps, not {NMS_CHAIN} or more")
+    for thr in NMS_PAIR_THRESHOLDS:
+        b, sc, ious = P.nms_cases.threshold_pairs(thr, 30, 7)
+        args = (torch.from_numpy(b).to(dev), torch.from_numpy(sc).to(dev), 0.25, thr, max_det)
+        read[f"pairs_{thr}"] = nms_against_plain(torch, P, args)
+        second = P.nms.nms_batch(*args)[2][0, 1:2 * len(ious):2].cpu().numpy()
+        if not np.array_equal(second, ious <= np.float32(thr)):
+            raise AssertionError(f"pairs at {thr}: the suppression does not compare the IoU "
+                                 "with the threshold in float32")
+    torch.cuda.synchronize()
+    control = "did not raise"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        P.nms.nms_batch(*calls[0]["args"])
+        try:
+            with switched(P.nms, "suppress", P.nms.suppress_ref):
+                P.nms.nms_batch(*calls[0]["args"])
+        except RuntimeError as err:
+            control = str(err).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if control == "did not raise":
+        raise AssertionError("the plain NMS raised nothing under sync-debug mode: the check "
+                             "sees no sync")
+    read["sync_debug_error_mode"] = {"kernel": "no sync", "plain_control": control}
+    read["torchvision_importable"] = importable("torchvision")
+    return read
+
+
 def phase_bn_act(torch, P, smodel, x, dev, card) -> dict:
     """The last part of phase 8: the Conv blocks' fused BN + SiLU
     (``model/bn_act.py``) on every Conv output of one served forward of
@@ -2399,6 +2562,7 @@ def main() -> int:
     from tpu_mslesseg_torch.core import geometry, profiling
     from tpu_mslesseg_torch.evalx import metrics as mx
     from tpu_mslesseg_torch.infer import mask_union as mu
+    from tpu_mslesseg_torch.infer import nms
     from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
     from tpu_mslesseg_torch.infer.predictor import SlicePredictor, detect_and_union
     from tpu_mslesseg_torch.infer.reconstruct import consensus_vote, reconstruct_volume
@@ -2414,6 +2578,7 @@ def main() -> int:
     from tpu_mslesseg_torch.pipeline.paths import ConfigPred, ConfigTrain
     from tpu_mslesseg_torch.pipeline.stages import generar_predicciones as gen_stage
     from tpu_mslesseg_torch.preproc import clahe, enhance
+    from tpu_mslesseg_torch.tools import nms_cases
     from tpu_mslesseg_torch.tools.train_batches import synthetic_batch as train_batch
     from tpu_mslesseg_torch.core import distributed, mesh
     from tpu_mslesseg_torch.train import (
@@ -2441,7 +2606,8 @@ def main() -> int:
         validate=validate, rapido=rapido, engine_parallel=engine_parallel,
         fold_parallel=fold_parallel, distributed=distributed, mesh=mesh,
         demo=ejecutar_demo, capacidad=entrenar_capacidad, analizar=analizar_pacientes_dsc,
-        native=native, gif=gif, figure=figure, predictor=predictor, labels=labels,
+        native=native, gif=gif, figure=figure, predictor=predictor, labels=labels, nms=nms,
+        nms_cases=nms_cases,
     )
 
     dev = torch.device(DEVICE)
@@ -2452,7 +2618,7 @@ def main() -> int:
     # each kernel's launch count: (module, counter)
     counters = {"mask_union": (mu, "LAUNCHES"), "clahe_tile_lut": (clahe, "LAUNCHES"),
                 "clahe_blend": (clahe, "BLEND_LAUNCHES"), "stem": (stem, "LAUNCHES"),
-                "bn_act": (bn_act, "LAUNCHES")}
+                "bn_act": (bn_act, "LAUNCHES"), "nms": (nms, "LAUNCHES")}
     max_err = dict.fromkeys(KERNELS, 0.0)
 
     # ---- phase 0: device and build -------------------------------------
@@ -2510,10 +2676,13 @@ def main() -> int:
     zero_launches(counters)
     counts, cons, vols = cp.lote(slices, idx, gts)
     torch.cuda.synchronize()
-    gc_launches = read_launches(counters)  # the GC path: the union and the epilogue
+    gc_launches = read_launches(counters)  # the GC path: the union, the epilogue, NMS
     launches = gc_launches["mask_union"]
     if launches < 1:
         raise AssertionError("the main path did not launch the mask-union kernel")
+    if gc_launches["nms"] != launches:
+        raise AssertionError(f"the main path launched NMS {gc_launches['nms']} times for "
+                             f"{launches} union launches")
 
     keep = kernel_union.last[3]
     kept_per_slice = float(keep.sum()) / keep.shape[0]
@@ -2801,7 +2970,9 @@ def main() -> int:
             cp.mask_union = rec_on
             stem_before = stem.LAUNCHES
             _, on_arrays, (_, first_cons, _) = direct[0]
-            _, on_cons, on_vols = cp.lote(*on_arrays)  # again: run to run the same?
+            nms_calls = []  # phase 8's NMS inputs: what this dispatch's nms_batch calls get
+            with recording_nms(P, nms_calls):
+                _, on_cons, on_vols = cp.lote(*on_arrays)  # again: run to run the same?
             launched = stem.LAUNCHES - stem_before
             _, off_cons, off_vols = cp_off.lote(*on_arrays)
             torch.cuda.synchronize()
@@ -2956,6 +3127,27 @@ def main() -> int:
                    **union_inputs[p]},
     )
     del union_calls
+
+    # NMS's suppression on the dispatch's three nms_batch calls (a plane each)
+    if len(nms_calls) != len(PLANES):
+        raise AssertionError(f"{len(nms_calls)} nms_batch calls in a per-plane lote")
+    nms_calls = dict(zip(PLANES, nms_calls))
+    nms_read = {p: nms_against_plain(torch, P, c["args"]) for p, c in nms_calls.items()}
+    time_dispatch(
+        "nms",
+        {p: ((lambda c=c["suppress"]: nms.suppress(*c)),
+             (lambda c=c["suppress"]: nms.suppress_ref(*c))) for p, c in nms_calls.items()},
+        20, 3, lambda p: nms_work(*nms_calls[p]["suppress"][:2]),
+        lambda p: {"n": int(nms_calls[p]["args"][1].shape[0]),
+                   "anchors": int(nms_calls[p]["args"][1].shape[1]),
+                   "k": int(nms_calls[p]["suppress"][1].shape[1]), "conf": nms_calls[p]["args"][2],
+                   "valid_per_image": float(nms_calls[p]["suppress"][1].sum())
+                   / nms_calls[p]["suppress"][1].shape[0], **nms_read[p]},
+        graph=True,
+    )
+    emit({"phase": "nms_checks", "inputs": "the first plane's call of phase 7's dispatch, a "
+          "chain, pairs at the threshold", **phase_nms(torch, P, list(nms_calls.values()), dev)})
+    del nms_calls
 
     time_dispatch(
         "stem",

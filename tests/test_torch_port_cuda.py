@@ -20,18 +20,23 @@ running mean cancels most of it that ulp exceeds the output's); the Conv
 block's fused BN + SiLU within one ulp of the stored type (bit-equal is
 the aim: the kernel copies the plain version's roundings; each case prints
 how many elements differ); a float32 ``lote`` under PyTorch's default TF32
-flags exactly as with TF32 off.
+flags exactly as with TF32 off; NMS's suppression kernel bit for bit (it
+rounds each IoU as the plain ``box_iou_matrix`` does and computes the
+fixpoint's greedy result).
 """
 
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 
 from tpu_mslesseg_torch.infer import mask_union as mu
+from tpu_mslesseg_torch.infer import nms
 from tpu_mslesseg_torch.model import blocks, bn_act, stem
 from tpu_mslesseg_torch.model.yolo11 import create_model, fold_gray_stem, init_variables
 from tpu_mslesseg_torch.preproc import clahe, enhance
+from tpu_mslesseg_torch.tools import nms_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -509,6 +514,148 @@ def test_bn_act_wrapper_checks_its_inputs(cuda):
     assert bn_act.LAUNCHES == before
     cpu = bn_act.bn_act(y.cpu(), bn.cpu(), True)  # a CPU tensor: the plain version
     assert bn_act.LAUNCHES == before and cpu.device.type == "cpu"
+
+
+# --------------------------------------------------------------------------
+# NMS's suppression
+# --------------------------------------------------------------------------
+
+
+def _nms_case(name):
+    """-> (boxes, scores, conf, iou) as numpy, max_det 300"""
+    if name == "served_shape":  # one plane of a served dispatch
+        return (*nms_cases.clustered(0, 200, 8400), 0.25, 0.7)
+    if name.startswith("chain_"):
+        return (*nms_cases.chain(int(name[6:]), 8400), 0.25, 0.7)
+    if name == "ties_partly_valid":
+        return (*nms_cases.clustered(1, 16, 400), 0.25, 0.7)
+    if name == "distinct_scores":
+        return (*nms_cases.clustered(2, 16, 400, ties=False), 0.25, 0.7)
+    if name == "k_below_max_det":
+        return (*nms_cases.clustered(3, 16, 50), 0.25, 0.7)
+    if name == "conf_0.001":
+        return (*nms_cases.clustered(4, 50, 8400), 0.001, 0.7)
+    if name == "none_valid":
+        return (*nms_cases.clustered(5, 4, 400), 0.9999, 0.7)
+    if name.startswith("threshold_"):
+        thr = float(name[10:])
+        boxes, scores, _ = nms_cases.threshold_pairs(thr, 30, 7)
+        return boxes, scores, 0.25, thr
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["served_shape", "chain_40", "chain_250", "ties_partly_valid",
+                                  "distinct_scores", "k_below_max_det", "conf_0.001",
+                                  "none_valid", "threshold_0.7", "threshold_0.3",
+                                  "threshold_0.45"])
+def test_nms_kernel_matches_plain(cuda, name, monkeypatch):
+    """``nms_batch`` on the card through the kernel against the same call
+    with the plain suppression on the card: keep, indices, boxes and scores
+    bit for bit. The threshold pairs decide how the plain version compares
+    ``iou > iou_thres``: at 0.3 float32 rounds the threshold up, so a
+    comparison in float64 would suppress the pairs at it."""
+    boxes, scores, conf, iou = _nms_case(name)
+    boxes, scores = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    before = nms.LAUNCHES
+    got = nms.nms_batch(boxes, scores, conf, iou, 300)
+    torch.cuda.synchronize()
+    assert nms.LAUNCHES == before + 1
+    monkeypatch.setattr(nms, "suppress", nms.suppress_ref)
+    want = nms.nms_batch(boxes, scores, conf, iou, 300)
+    assert nms.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if name.startswith("threshold_"):
+        t = np.float32(iou)
+        _, _, ious = nms_cases.threshold_pairs(iou, 30, 7)
+        np.testing.assert_array_equal(got[2][0, 1:60:2].cpu().numpy(), ious <= t)
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 300, 1024])
+def test_nms_kernel_matches_plain_at_every_k(cuda, k):
+    """The kernel's words and shared-memory layout at K around a word's
+    edge, at the callers' 300 and at the limit, 1,024 (157 KB of shared
+    memory, past the default 48 KB), conf 0.001."""
+    boxes, scores = nms_cases.clustered(k, 8, max(k, 2), objects=4)
+    top = torch.from_numpy(boxes[:, :k]).to(cuda)
+    valid = torch.from_numpy(scores[:, :k] > 0.001).to(cuda)
+    got = nms.suppress(top, valid, 0.7)
+    want = nms.suppress_ref(top, valid, 0.7)
+    assert torch.equal(got, want)
+    if k > 1:
+        assert bool(got.any()) and not bool(got.all())
+
+
+def test_nms_on_the_card_makes_no_host_sync(cuda):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` a synchronising
+    call raises: ``nms_batch`` through the kernel makes none; through the
+    plain version, which reads a bool back each step, it raises."""
+    boxes, scores, conf, iou = _nms_case("served_shape")
+    boxes, scores = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
+    nms.nms_batch(boxes, scores, conf, iou, 300)  # built and loaded before the check
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        nms.nms_batch(boxes, scores, conf, iou, 300)
+        with pytest.MonkeyPatch.context() as mp, pytest.raises(RuntimeError, match="synchroniz"):
+            mp.setattr(nms, "suppress", nms.suppress_ref)
+            nms.nms_batch(boxes, scores, conf, iou, 300)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_nms_wrapper_checks_its_inputs(cuda):
+    boxes, scores = nms_cases.clustered(0, 2, 64)
+    top = torch.from_numpy(boxes).to(cuda)
+    valid = torch.from_numpy(scores > 0.25).to(cuda)
+    before = nms.LAUNCHES
+    with pytest.raises(ValueError, match="valid on cpu"):
+        nms.suppress(top, valid.cpu(), 0.7)
+    with pytest.raises(TypeError):
+        nms.suppress(top.half(), valid, 0.7)
+    with pytest.raises(ValueError, match=f"at most {nms.MAX_K}"):
+        over = nms.MAX_K + 1
+        nms.suppress(torch.zeros((1, over, 4), device=cuda),
+                     torch.ones((1, over), dtype=torch.bool, device=cuda), 0.7)
+    assert nms.LAUNCHES == before
+    # a strided view, and a contiguous one off a 16-byte boundary, are copied
+    # first
+    flat = torch.zeros(1 + top[:, :40].numel(), device=cuda)
+    flat[1:] = top[:, :40].reshape(-1)
+    for view in (top[:, 1:41], flat[1:].view(2, 40, 4)):
+        assert torch.equal(nms.suppress(view, valid[:, 1:41], 0.7),
+                           nms.suppress_ref(view, valid[:, 1:41], 0.7))
+    assert flat[1:].data_ptr() % 16 and nms.LAUNCHES == before + 2
+    empty = nms.suppress(top[:0], valid[:0], 0.7)
+    assert tuple(empty.shape) == (0, 64) and nms.LAUNCHES == before + 2
+
+
+def test_lote_launches_the_nms_kernel_once_a_call(cuda, monkeypatch):
+    """``ConsensusPredictor.lote`` (GC, imgsz 320, one patient, 8 slices a
+    plane, a plane's own weights) launches the kernel once for each
+    ``nms_batch`` call, one a plane."""
+    from tpu_mslesseg_torch.bench import workload
+    from tpu_mslesseg_torch.infer import predictor
+    from tpu_mslesseg_torch.infer.consensus3 import ConsensusPredictor
+
+    size = workload.Size(vol_shape=(64, 72, 64), serve_patients=("P39",), per_plane=8, short=8,
+                         serve_lesion=(slice(20, 40), slice(25, 45), slice(20, 40)))
+    slices, idx, gts = workload.serving_group(0, size)
+    model, _ = create_model(nc=1, scale="n", dtype=torch.bfloat16)
+    cp = ConsensusPredictor(model, workload.plane_weights(model, 0, base=10), size.vol_shape,
+                            mejora="GC", imgsz=320, umbral=2, per_plane_counts=True, device=cuda)
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(nms.LAUNCHES)
+        return nms.nms_batch(*a, **kw)
+
+    monkeypatch.setattr(predictor, "nms_batch", counted)
+    before = nms.LAUNCHES
+    cp.lote(slices, idx, gts)
+    torch.cuda.synchronize()
+    assert len(calls) == 3 and calls == [before, before + 1, before + 2]
+    assert nms.LAUNCHES == before + 3
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,8 @@ wrapper's input preparation, on the CPU.
   the tensor-core kernel and everything else to the FMA kernel, and computes
   each image's live-slot count.
 - ``chip_smoke.py`` counts the bytes and operations of the work it bounds
-  from the shapes and, for the union, from the pixels the kept boxes hold;
+  from the shapes and, for the union, from the pixels the kept boxes hold
+  (for NMS, from the pairs of valid candidates);
   its background-heavy CLAHE inputs are about half zeros;
   ``tools/kernel_ab.py``'s ablations still find their text in the stem and
   the CLAHE source, and its stem cases reach each scale's kernel instance
@@ -223,6 +224,22 @@ def test_clahe_works_count_images_luts_and_output():
     assert blend["ops"] == {"ops": 10.0 * 3 * 20 * 30}
     assert lut["bound_by"] == blend["bound_by"] == "bytes"
     assert blend["bound_ms"] == pytest.approx(blend["bytes"] / cs.HBM_BYTES_PER_S * 1e3)
+
+
+def test_nms_work_counts_the_pairs_of_valid_candidates():
+    cs = _chip_smoke()
+    top = torch.zeros((3, 10, 4))
+    valid = torch.zeros((3, 10), dtype=torch.bool)
+    valid[0, :4] = True  # 6 pairs
+    valid[1, ::2] = True  # 5 valid, 10 pairs
+    work = cs.nms_work(top, valid)  # image 2: none valid
+    assert work["bytes"] == 3 * 10 * 4 * 4 + 2 * 3 * 10
+    assert work["ops"] == {"f32_ops": cs.NMS_OPS_PER_PAIR * 16.0}
+    assert work["bound_by"] == "bytes"
+    assert work["bound_ms"] == pytest.approx(work["bytes"] / cs.HBM_BYTES_PER_S * 1e3)
+    many = cs.nms_work(torch.zeros((200, 300, 4)), torch.ones((200, 300), dtype=torch.bool))
+    assert many["ops"]["f32_ops"] == cs.NMS_OPS_PER_PAIR * 200 * 300 * 299 / 2
+    assert many["bound_by"] == "operations"
 
 
 @pytest.mark.parametrize("hw", [(182, 218), (182, 182), (218, 182)])
