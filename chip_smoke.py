@@ -94,8 +94,10 @@ pipeline's log lines):
    of valid candidates); then ``nms_checks``: the first call at NMS
    confidence 0.001 and with no valid candidate, a chain of 250 links, pairs
    at, one ulp above and one ulp below the thresholds 0.7, 0.3 and 0.45
-   (only those above suppress: the comparison in float32), and the first
-   call under ``torch.cuda.set_sync_debug_mode("error")``: through the
+   (only those above suppress: the comparison in float32), the first
+   call's first 50 images and the three calls as one of 600 images (the
+   cluster and tile edges of the kernel's grid; each graph-timed), and the
+   first call under ``torch.cuda.set_sync_debug_mode("error")``: through the
    kernel no sync, through the plain version (the control) one raised.
 
 9. cli_chain: the orchestrator CLI through the stage chain. A dataset tree
@@ -2459,12 +2461,24 @@ def phase_nms(torch, P, calls, dev) -> dict:
     chain of ``NMS_CHAIN`` links among 8,400 anchors (the plain fixpoint
     must take a step a link); pairs of boxes at, one ulp above and one
     ulp below each of ``NMS_PAIR_THRESHOLDS``, whose second box must go only
-    above it (the comparison in float32). Then that call under
+    above it (the comparison in float32); the first call's first 50 images
+    (a patient's plane in stage 3) and the three calls' 600 images as one
+    call (a GC dispatch's shared-weight batch), each suppression also
+    graph-timed. Then that call under
     ``torch.cuda.set_sync_debug_mode("error")``: through the kernel it
     raises nothing; through the plain version, the control, it raises."""
-    boxes, scores, _, iou, max_det = calls[0]["args"]
+    boxes, scores, conf, iou, max_det = calls[0]["args"]
     read = {"conf_0.001": nms_against_plain(torch, P, (boxes, scores, CHECK_CONF, iou, max_det)),
             "none_valid": nms_against_plain(torch, P, (boxes, scores, 1.0, iou, max_det))}
+    for name, args in (
+            ("b50", (boxes[:50], scores[:50], conf, iou, max_det)),
+            ("b600", (torch.cat([c["args"][0] for c in calls]),
+                      torch.cat([c["args"][1] for c in calls]), conf, iou, max_det))):
+        read[name] = nms_against_plain(torch, P, args)
+        seen = []
+        with switched(P.nms, "suppress", lambda *a: seen.append(a) or P.nms.suppress_ref(*a)):
+            P.nms.nms_batch(*args)
+        read[name]["kernel_ms"] = graph_ms(torch, lambda a=seen[0]: P.nms.suppress(*a), 20)
     if read["none_valid"]["kept_per_image"] != 0.0:
         raise AssertionError("NMS kept a candidate with no valid score")
     b, sc = P.nms_cases.chain(NMS_CHAIN, boxes.shape[1])
@@ -3146,7 +3160,8 @@ def main() -> int:
         graph=True,
     )
     emit({"phase": "nms_checks", "inputs": "the first plane's call of phase 7's dispatch, a "
-          "chain, pairs at the threshold", **phase_nms(torch, P, list(nms_calls.values()), dev)})
+          "chain, pairs at the threshold, 50 and 600 images",
+          **phase_nms(torch, P, list(nms_calls.values()), dev)})
     del nms_calls
 
     time_dispatch(

@@ -242,6 +242,27 @@ def test_clahe_kernels_equal_plain_on_image_kinds(cuda, kind, n, h, w, tiles_x, 
     assert clahe.BLEND_LAUNCHES == before[1] + 2
 
 
+BLEND_SHAPES = [(182, 218), (182, 182), (218, 182), (37, 200)]  # the last: w % 16 = 8
+
+
+@pytest.mark.parametrize("kind", ["random", "background"])
+@pytest.mark.parametrize("n", [1, 50, 200])
+@pytest.mark.parametrize("hw", BLEND_SHAPES)
+def test_clahe_blend_equals_plain_at_cluster_edges(cuda, hw, n, kind):
+    """The blend (a cluster of CTAs an image, each a share of its rows and
+    of its LUT rows) exactly as the plain version at the plane shapes and a
+    width that is not a multiple of 16, at 1, 50 and 200 images."""
+    gen = torch.Generator().manual_seed(n * hw[0] + hw[1])
+    imgs = _clahe_images(kind, n, *hw, gen).to(cuda)
+    luts = clahe.clahe_tile_luts_ref(imgs)
+    out_map = torch.from_numpy(enhance._LAB_BWD).to(cuda)
+    before = clahe.BLEND_LAUNCHES
+    got = clahe.clahe_blend(imgs, luts, out_map)
+    torch.cuda.synchronize()
+    assert clahe.BLEND_LAUNCHES == before + 1
+    assert torch.equal(got, clahe.clahe_blend_ref(imgs, luts, out_map))
+
+
 def test_clahe_kernels_take_an_unaligned_view(cuda):
     """A view that starts off a 16-byte boundary (an image of 9 x 11 px)."""
     gen = torch.Generator().manual_seed(5)
@@ -582,6 +603,28 @@ def test_nms_kernel_matches_plain_at_every_k(cuda, k):
     got = nms.suppress(top, valid, 0.7)
     want = nms.suppress_ref(top, valid, 0.7)
     assert torch.equal(got, want)
+    if k > 1:
+        assert bool(got.any()) and not bool(got.all())
+
+
+@pytest.mark.parametrize("b,k", [(1, 300), (50, 300), (200, 300), (600, 300), (50, 1),
+                                 (50, 63), (50, 64), (50, 65), (50, 1024)])
+def test_nms_kernel_matches_plain_at_cluster_and_tile_edges(cuda, b, k):
+    """The kernel (a cluster of CTAs an image, 32 x 32 tiles of the lower
+    triangle spread over its warps) bit for bit as ``suppress_ref`` at 1 to
+    600 images and at K around a tile's edge and at the limit, on
+    served-like clusters at conf 0.25 (at K = 1,024 conf 0.001, so that
+    every row block holds valid candidates)."""
+    boxes, scores = nms_cases.clustered(b + k, b, max(2000, k), objects=8)
+    conf = 0.001 if k == 1024 else 0.25
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    top = torch.from_numpy(np.take_along_axis(boxes, order[..., None], 1)).to(cuda)
+    valid = torch.from_numpy(np.take_along_axis(scores, order, 1) > conf).to(cuda)
+    before = nms.LAUNCHES
+    got = nms.suppress(top.contiguous(), valid.contiguous(), 0.7)
+    torch.cuda.synchronize()
+    assert nms.LAUNCHES == before + 1
+    assert torch.equal(got, nms.suppress_ref(top, valid, 0.7))
     if k > 1:
         assert bool(got.any()) and not bool(got.all())
 

@@ -212,6 +212,26 @@ def test_kernel_ab_ablations_still_match_the_stem_source():
             assert src.count(old) == 1, (name, old)
 
 
+def test_kernel_ab_nms_variants_and_designs_still_match_their_sources():
+    """Each text an NMS ablation or an other design of NMS or of the blend
+    rewrites occurs once in its source; each NMS ablation guards a step
+    with a condition that never holds; the two-launch NMS variant calls the
+    kernel's own three steps."""
+    from tpu_mslesseg_torch.tools import kernel_ab
+
+    for source, variants in (("clahe_tile_lut.cu", kernel_ab.CLAHE_DESIGNS),
+                             ("nms.cu", {**kernel_ab.NMS_ABLATIONS, **kernel_ab.NMS_DESIGNS})):
+        text = (kernel_ab.CSRC / source).read_text()
+        for name, subs in variants.items():
+            for old, new in subs:
+                assert text.count(old) == 1 and old != new, (name, old)
+                if name in kernel_ab.NMS_ABLATIONS:
+                    assert "if (thr < -1.0f)" in new
+    nms_text = (kernel_ab.CSRC / "nms.cu").read_text()
+    for step in ("stage", "build_tiles", "scan"):
+        assert nms_text.count(f" {step}(") >= 2 and f" {step}(" in kernel_ab.NMS_TWO_LAUNCHES
+
+
 def test_clahe_works_count_images_luts_and_output():
     cs = _chip_smoke()
     x = torch.zeros((3, 20, 30), dtype=torch.uint8)

@@ -127,3 +127,127 @@ def test_suppress_checks_its_inputs():
         nms.suppress(top, valid[:, :30], 0.7)
     with pytest.raises(ValueError):
         nms.suppress(top[..., :3], valid, 0.7)
+
+
+# --------------------------------------------------------------------------
+# The kernel's comparison without the division (csrc/nms.cu, its note)
+# --------------------------------------------------------------------------
+
+
+def _fma32(a, b, c):
+    """float32 ``fma(a, b, c)``: a * b + c rounded once. The float64 product
+    is exact; the float64 sum's rounding error (TwoSum) decides the one case
+    where rounding the sum to float64 first would round again, a sum that
+    lands on a float32 midpoint."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    cc = c.astype(np.float64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        s = p + cc
+        bb = s - p
+        err = (p - (s - bb)) + (cc - bb)
+        r = s.astype(np.float32)
+        toward = np.where(s > r.astype(np.float64), np.float32(np.inf), np.float32(-np.inf))
+        other = np.nextafter(r, toward)
+        midpoint = (r.astype(np.float64) + other.astype(np.float64)) / 2 == s
+        up = np.where(err > 0, np.maximum(r, other), np.minimum(r, other))
+    return np.where(midpoint & (err != 0) & np.isfinite(s), up, r)
+
+
+def _screened(inter, uni, thr):
+    """The kernel's rule for ``inter / uni > thr`` in float32, thr in [2^-60,
+    1]: d = fma(-thr, uni, inter) against hu = h * uni, h half an ulp of thr.
+    -> (above, tie): above where d > hu, undecided (the kernel divides) where
+    d == hu."""
+    t = np.float32(thr)
+    h = (np.nextafter(t, np.float32(np.inf)) - t) * np.float32(0.5)
+    d = _fma32(np.full_like(uni, -t), uni, inter)
+    hu = h * uni
+    return d > hu, d == hu
+
+
+def _inter_union(a, b):
+    """float32 intersection and clamped union of box pairs, in
+    ``box_iou_matrix``'s order of operations."""
+    zero = np.float32(0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        area_a = np.maximum(a[:, 2] - a[:, 0], zero) * np.maximum(a[:, 3] - a[:, 1], zero)
+        area_b = np.maximum(b[:, 2] - b[:, 0], zero) * np.maximum(b[:, 3] - b[:, 1], zero)
+        w = np.maximum(np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]), zero)
+        h = np.maximum(np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]), zero)
+        inter = w * h
+        return inter, np.maximum((area_a + area_b) - inter, np.float32(1e-7))
+
+
+def _divided(inter, uni, thr):
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        return inter / uni > np.float32(thr)
+
+
+def _seeded_pairs(seed: int, n: int):
+    """n float32 (inter, uni) pairs: a third from random box pairs (most
+    disjoint or far from any threshold), two thirds with inter / uni within
+    a few ulps of 0.3, 0.45 or 0.7 (where one rounding more or less flips
+    the answer), and the special values: zero, NaN, infinities."""
+    rng = np.random.default_rng(seed)
+    m = n // 3
+    xy = rng.uniform(0, 600, (2, m, 2)).astype(np.float32)
+    wh = rng.uniform(1, 200, (2, m, 2)).astype(np.float32)
+    inter_r, uni_r = _inter_union(np.concatenate([xy[0], xy[0] + wh[0]], 1),
+                                  np.concatenate([xy[1], xy[1] + wh[1]], 1))
+    uni_t = np.float32(10) ** rng.uniform(-6, 6, n - m).astype(np.float32)
+    t = rng.choice(np.float32([0.3, 0.45, 0.7]), n - m)
+    ulps = rng.integers(-3, 4, n - m)
+    inter_t = (t.astype(np.float64) * uni_t * (1 + ulps * 2.0 ** -24)).astype(np.float32)
+    special = np.float32([0, np.nan, np.inf, -np.inf, 1e-7, 3e38])
+    inter_s, uni_s = (g.ravel() for g in np.meshgrid(special, special))
+    inter = np.concatenate([inter_r, inter_t, inter_s])
+    uni = np.concatenate([uni_r, uni_t, np.maximum(uni_s, np.float32(1e-7))])
+    return inter, uni
+
+
+def _near_ties(thr, count: int, seed: int):
+    """`count` pairs whose inter / uni lies as near the midpoint m between
+    float32 thr and the next float up as float32 allows:
+    uni's significand makes m * uni a few units of its last place from a
+    float (m's significand is odd, so it has an inverse mod 2^25), and
+    inter is that float."""
+    rng = np.random.default_rng(seed)
+    sig, e = np.frexp(np.float64(np.float32(thr)))
+    m_sig = 2 * int(sig * 2 ** 24) + 1  # m = m_sig * 2^(e - 25)
+    inv = pow(m_sig, -1, 2 ** 25)
+    sigs = [u for c in range(1, 4 * count) for u in ((c * inv) % 2 ** 25, (-c * inv) % 2 ** 25)
+            if 2 ** 23 <= u < 2 ** 24][:count]
+    uni = (np.array(sigs, np.float64) * 2.0 ** rng.integers(-34, -4, len(sigs))).astype(np.float32)
+    inter = (m_sig * 2.0 ** (e - 25) * uni.astype(np.float64)).astype(np.float32)
+    return inter, uni
+
+
+@pytest.mark.parametrize("thr", [0.7, 0.3, 0.45])
+def test_division_free_comparison_equals_the_division(thr):
+    """Every pair the rule decides, it decides as ``inter / uni > thr`` in
+    float32 does: on the pairs at, one ulp above and one ulp below the
+    threshold, and on 10^6 seeded pairs (a third of them within three ulps
+    of a threshold), and on pairs built to sit next to the rounding's
+    midpoint. Ties, which the kernel leaves to the division, stay rare; a
+    float32 ``inter > thr * uni`` would get pairs near the threshold
+    wrong."""
+    boxes, _, ious = nms_cases.threshold_pairs(thr, 30, 7)
+    inter, uni = _inter_union(boxes[0, 0::2], boxes[0, 1::2])
+    above, tie = _screened(inter, uni, thr)
+    np.testing.assert_array_equal(_divided(inter, uni, thr), ious > np.float32(thr))
+    assert not tie.any()
+    np.testing.assert_array_equal(above, ious > np.float32(thr))
+
+    inter, uni = _seeded_pairs(int(thr * 100), 1_000_000)
+    above, tie = _screened(inter, uni, thr)
+    want = _divided(inter, uni, thr)
+    np.testing.assert_array_equal(above[~tie], want[~tie])
+    assert tie.sum() < 1e-3 * len(tie)
+
+    inter, uni = _near_ties(thr, 400, int(thr * 100))
+    above, tie = _screened(inter, uni, thr)
+    want = _divided(inter, uni, thr)
+    np.testing.assert_array_equal(above[~tie], want[~tie])
+    with np.errstate(invalid="ignore", over="ignore"):
+        naive = inter > np.float32(thr) * uni
+    assert (naive != want).any()

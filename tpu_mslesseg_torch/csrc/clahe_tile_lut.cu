@@ -50,23 +50,43 @@
 // 5-step shuffle scan of the lane totals, and two float4 stores: the warp
 // writes its tile's 1 KB LUT contiguously. No block barrier after staging.
 //
-// Blend design. One block per (image, band of rows sharing ty1 and ty2):
-// tiles_y + 1 bands an image. The block turns its two LUT rows into a table
-// of 32-bit words, one per (tile column pair, value), holding the four LUT
-// entries a pixel needs as bytes (the LUTs hold the integers 0..255, so the
-// bytes are exact): one shared-memory load a pixel. Rows are padded by one
-// word, so equal values in different tile columns fall in different banks.
-// Each thread then blends 16 consecutive pixels a step with one 16-byte
-// load and one 16-byte store; a band's rows are contiguous in memory.
+// Blend design. The first kernel ran one block of 128 threads per (image,
+// band of rows sharing ty1 and ty2); each thread blended 16 consecutive
+// bytes a step, and every pixel redid its column's arithmetic and tested
+// for a row's end, so its pixel loop cost some 70 instructions a pixel. Now
+// a CTA still takes kBandsPerCta bands of an image (1,800 CTAs a launch of
+// 200 images), but a thread takes a column:
+//   1. the setup: for each of its rows ya, 1 - ya and its band's table (a
+//      broadcast read a row in the loop); the output map; and for each
+//      band a table of 32-bit words, one per (tile column pair, value),
+//      holding the four LUT entries a pixel needs as bytes (the LUTs hold
+//      the integers 0..255, so the bytes are exact), built four values a
+//      step straight from the f32 LUTs (16-byte loads, the low byte of
+//      2^23 + v; the tile-LUT kernel has just written them to L2); rows of
+//      the table are padded by one word, so equal values in different tile
+//      columns fall in different banks;
+//   2. the pixels: the thread's xa, 1 - xa and table column stay in
+//      registers, and it walks the rows top to bottom, one byte in and one
+//      out a row (a warp's bytes are 32 consecutive ones), a table load and
+//      a map load between, no branch.
+// Chosen by A/B on an H100 (tools/kernel_ab.py --ablate; PERF.md, section 6):
+// a cluster of 4 CTAs an image that staged its LUT rows once and shared
+// them through distributed shared memory, each CTA blending 16-byte chunks
+// with a column table in shared memory, took 46-51 us a launch of 200
+// images against the first kernel's 31; 2 or 3 bands a CTA, 2 or 4 columns a thread,
+// two threads a column and a copy of the map for each lane were no faster.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kBins = 256;
 constexpr int kMaxLutWarps = 8;     // warps of a tile-LUT block
-constexpr int kBlendThreads = 128;  // threads of a blend block
+constexpr int kBlendThreads = 256;  // threads of a blend CTA at most: a thread a column
+constexpr int kBandsPerCta = 1;     // bands of rows a blend CTA takes
 constexpr int kTableStride = kBins + 1;
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block can have
 constexpr unsigned kFull = 0xffffffffu;
@@ -223,117 +243,88 @@ __device__ __forceinline__ float byte_f(uint32_t q, int k) {
   return __fsub_rn(__uint_as_float(__byte_perm(q, 0x4B000000u, 0x7440 | k)), kMagic);
 }
 
-struct BlendRow {
-  float ya, oma;  // the row's weight ya and 1 - ya
-};
-
-__device__ __forceinline__ BlendRow blend_row(int y, float ry) {
-  const float f = tile_coord(y, ry);
-  const float ya = __fsub_rn(f, floorf(f));
-  return {ya, __fsub_rn(1.0f, ya)};
+// four LUT entries (the integers 0..255 as f32) as the low bytes of 2^23 + v
+__device__ __forceinline__ uint4 lut_bytes(float4 v) {
+  return make_uint4(__float_as_uint(__fadd_rn(v.x, kMagic)), __float_as_uint(__fadd_rn(v.y, kMagic)),
+                    __float_as_uint(__fadd_rn(v.z, kMagic)), __float_as_uint(__fadd_rn(v.w, kMagic)));
 }
 
-// the blended, mapped pixel of value v at column x
-__device__ __forceinline__ uint32_t blend_pixel(uint32_t v, float xf, BlendRow row, float rx,
-                                                int tiles_x, const uint32_t* table,
-                                                const uint8_t* omap) {
-  const float f = __fmaf_rn(xf, rx, -0.5f);
-  const float j = floorf(f);
-  const float xa = __fsub_rn(f, j);
-  const float oma = __fsub_rn(1.0f, xa);
-  // table column floor(f) + 1, read from the float's low bits
-  const int e = min(__float_as_int(__fadd_rn(j, kMagic + 1.0f)) - __float_as_int(kMagic), tiles_x);
-  const uint32_t q = table[e * kTableStride + v];
-  const float top = __fmaf_rn(byte_f(q, 0), oma, __fmul_rn(byte_f(q, 2), xa));
-  const float bottom = __fmaf_rn(byte_f(q, 1), oma, __fmul_rn(byte_f(q, 3), xa));
-  float res = __fmaf_rn(top, row.oma, __fmul_rn(bottom, row.ya));
-  res = fminf(fmaxf(res, 0.0f), 255.0f);
-  return omap[__float_as_uint(__fadd_rn(res, kMagic)) & 0xffu];  // rint: half to even
+// the table word of one value: the low bytes of a, b, c, d in that order
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
 __global__ void __launch_bounds__(kBlendThreads)
 clahe_blend_kernel(const uint8_t* __restrict__ imgs, const float* __restrict__ luts,
                    const uint8_t* __restrict__ out_map, uint8_t* __restrict__ out, int h, int w,
-                   int tiles_x, int th, float ry, float rx) {
+                   int tiles_x, int tiles_y, int th, int rows_max, float ry, float rx) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tiles_y = gridDim.x - 1;
-  uint32_t* table = reinterpret_cast<uint32_t*>(smem);  // [tiles_x + 1][kTableStride]
-  uint8_t* lut_rows = smem + (tiles_x + 1) * kTableStride * sizeof(uint32_t);  // [2][tiles_x][256]
-  uint8_t* omap = lut_rows + 2 * tiles_x * kBins;
-  const int i = static_cast<int>(blockIdx.x) - 1;  // floor(tile_coord) of the band's rows
   const int img = blockIdx.y;
-  const int ty1 = max(i, 0);
-  const int ty2 = min(i + 1, tiles_y - 1);
+  const int band0 = blockIdx.x * kBandsPerCta;  // bands band0 .. band1: floor(tile_coord) + 1
+  const int band1 = min(band0 + kBandsPerCta, tiles_y + 1) - 1;
+  const int y_beg = band0 == 0 ? 0 : band_start(band0 - 1, h, th, ry);
+  const int y_end = band1 >= tiles_y ? h : band_start(band1, h, th, ry);
+  if (y_end <= y_beg) return;  // bands past the image (tiles of a few pixels)
+  const int band_words = (tiles_x + 1) * kTableStride;
+  float4* rows = reinterpret_cast<float4*>(smem);                      // [rows_max]
+  uint8_t* omap = reinterpret_cast<uint8_t*>(rows + rows_max);          // [256]
+  uint32_t* tables = reinterpret_cast<uint32_t*>(omap + kBins);         // [kBandsPerCta][band_words]
 
-  // the band's two LUT rows as bytes, and the output map
-  const int per_row = tiles_x * kBins / 4;
-  for (int k = threadIdx.x; k < 2 * per_row; k += blockDim.x) {
-    const int second = k >= per_row;
-    const size_t t0 = (static_cast<size_t>(img) * tiles_y + (second ? ty2 : ty1)) * tiles_x;
-    const float4 v = reinterpret_cast<const float4*>(luts + t0 * kBins)[k - second * per_row];
-    reinterpret_cast<uchar4*>(lut_rows)[k] =
-        make_uchar4(static_cast<unsigned char>(__float2uint_rn(v.x)),
-                    static_cast<unsigned char>(__float2uint_rn(v.y)),
-                    static_cast<unsigned char>(__float2uint_rn(v.z)),
-                    static_cast<unsigned char>(__float2uint_rn(v.w)));
+  // a row's weight ya, 1 - ya and its band's table (a word offset)
+  for (int r = threadIdx.x; r < y_end - y_beg; r += blockDim.x) {
+    const float f = tile_coord(y_beg + r, ry);
+    const float j = floorf(f);
+    const float ya = __fsub_rn(f, j);
+    const int band = min(static_cast<int>(j) + 1, tiles_y);
+    rows[r] = make_float4(ya, __fsub_rn(1.0f, ya), __int_as_float((band - band0) * band_words), 0.0f);
   }
   for (int k = threadIdx.x; k < kBins; k += blockDim.x) omap[k] = out_map[k];
-  __syncthreads();
-
-  // table[e][v]: the four entries of a pixel of value v in column pair e =
-  // floor(fx) + 1, as bytes (ty1,tx1), (ty2,tx1), (ty1,tx2), (ty2,tx2)
-  for (int k = threadIdx.x; k < (tiles_x + 1) * kBins; k += blockDim.x) {
-    const int e = k / kBins;
-    const int v = k - e * kBins;
-    const int c1 = max(e - 1, 0);
-    const int c2 = min(e, tiles_x - 1);
-    const uint8_t* a = lut_rows;
-    const uint8_t* b = lut_rows + tiles_x * kBins;
-    table[e * kTableStride + v] = a[c1 * kBins + v] | b[c1 * kBins + v] << 8 |
-                                  a[c2 * kBins + v] << 16 | b[c2 * kBins + v] << 24;
+  // table[b][e][v]: the four entries a pixel of value v in column pair e =
+  // floor(fx) + 1 of band band0 + b needs, as bytes (ty1,tx1), (ty2,tx1),
+  // (ty1,tx2), (ty2,tx2); four values a step, straight from the f32 LUTs
+  const float4* lut4 = reinterpret_cast<const float4*>(luts + static_cast<size_t>(img) * tiles_y *
+                                                                  tiles_x * kBins);
+  const int groups = (band1 - band0 + 1) * (tiles_x + 1) * (kBins / 4);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int v4 = g & (kBins / 4 - 1);
+    const int be = g / (kBins / 4);
+    const int e = be % (tiles_x + 1);
+    const int b = be / (tiles_x + 1);
+    const int t1 = max(band0 + b - 1, 0), t2 = min(band0 + b, tiles_y - 1);
+    const int c1 = max(e - 1, 0), c2 = min(e, tiles_x - 1);
+    const uint4 a = lut_bytes(lut4[(t1 * tiles_x + c1) * (kBins / 4) + v4]);
+    const uint4 bb = lut_bytes(lut4[(t2 * tiles_x + c1) * (kBins / 4) + v4]);
+    const uint4 c = lut_bytes(lut4[(t1 * tiles_x + c2) * (kBins / 4) + v4]);
+    const uint4 d = lut_bytes(lut4[(t2 * tiles_x + c2) * (kBins / 4) + v4]);
+    uint32_t* t = tables + b * band_words + e * kTableStride + 4 * v4;
+    t[0] = pack4(a.x, bb.x, c.x, d.x);
+    t[1] = pack4(a.y, bb.y, c.y, d.y);
+    t[2] = pack4(a.z, bb.z, c.z, d.z);
+    t[3] = pack4(a.w, bb.w, c.w, d.w);
   }
   __syncthreads();
 
-  const int y_beg = i < 0 ? 0 : band_start(i, h, th, ry);
-  const int y_end = i + 1 >= tiles_y ? h : band_start(i + 1, h, th, ry);
-  const size_t img0 = static_cast<size_t>(img) * h * w;
-  const size_t s = img0 + static_cast<size_t>(y_beg) * w;
-  const size_t e = img0 + static_cast<size_t>(y_end) * w;
-  for (size_t k = (s >> 4) + threadIdx.x; (k << 4) < e; k += blockDim.x) {
-    const size_t a = k << 4;
-    const size_t first = a > s ? a : s;
-    const size_t last = a + 16 < e ? a + 16 : e;
-    const int o = static_cast<int>(first - img0);
-    int y = o / w;
-    int x = o - y * w;
-    float xf = static_cast<float>(x);
-    BlendRow row = blend_row(y, ry);
-    if (first == a && last == a + 16) {  // the whole chunk is this band's
-      const uint4 in = *reinterpret_cast<const uint4*>(imgs + a);
-      const uint32_t iw[4] = {in.x, in.y, in.z, in.w};
-      uint32_t ow[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t v = (iw[j >> 2] >> (8 * (j & 3))) & 0xffu;
-        ow[j >> 2] |= blend_pixel(v, xf, row, rx, tiles_x, table, omap) << (8 * (j & 3));
-        xf += 1.0f;
-        if (++x == w) {
-          x = 0;
-          xf = 0.0f;
-          row = blend_row(++y, ry);
-        }
-      }
-      *reinterpret_cast<uint4*>(out + a) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
-    } else {  // shared with the next band or image, or the tensor's end
-      for (size_t g = first; g < last; ++g) {
-        out[g] = static_cast<uint8_t>(blend_pixel(imgs[g], xf, row, rx, tiles_x, table, omap));
-        xf += 1.0f;
-        if (++x == w) {
-          x = 0;
-          xf = 0.0f;
-          row = blend_row(++y, ry);
-        }
-      }
+  // a thread a column: its xa, 1 - xa and table column stay in registers,
+  // and it walks the rows top to bottom, one byte in and one out a row
+  const uint8_t* src = imgs + static_cast<size_t>(img) * h * w;
+  uint8_t* dst = out + static_cast<size_t>(img) * h * w;
+  for (int x = threadIdx.x; x < w; x += blockDim.x) {
+    const float f = tile_coord(x, rx);
+    const float j = floorf(f);
+    const float xa = __fsub_rn(f, j);
+    const float oma = __fsub_rn(1.0f, xa);
+    const uint32_t* col = tables + min(static_cast<int>(j) + 1, tiles_x) * kTableStride;
+#pragma unroll 4
+    for (int y = y_beg; y < y_end; ++y) {
+      const float4 row = rows[y - y_beg];
+      const int o = y * w + x;
+      const uint32_t q = col[__float_as_int(row.z) + src[o]];
+      const float top = __fmaf_rn(byte_f(q, 0), oma, __fmul_rn(byte_f(q, 2), xa));
+      const float bottom = __fmaf_rn(byte_f(q, 1), oma, __fmul_rn(byte_f(q, 3), xa));
+      // res lies in [0, 255 (1 + 2^-22)]: rint (half to even, the low byte
+      // of 2^23 + res) is in 0..255 without the plain version's clamp
+      const float res = __fmaf_rn(top, row.y, __fmul_rn(bottom, row.x));
+      dst[o] = omap[__float_as_uint(__fadd_rn(res, kMagic)) & 0xffu];
     }
   }
 }
@@ -386,12 +377,16 @@ extern "C" int clahe_blend(const uint8_t* imgs, const float* luts, const uint8_t
        reinterpret_cast<uintptr_t>(luts)) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(tiles_x + 1) * kTableStride * sizeof(uint32_t) +
-                      2 * static_cast<size_t>(tiles_x) * kBins + kBins;
+  // a band holds at most th + 1 rows
+  const int rows_max = std::min(h, kBandsPerCta * (th + 1));
+  const int band_words = (tiles_x + 1) * kTableStride;
+  const size_t smem = static_cast<size_t>(rows_max) * sizeof(float4) + kBins +
+                      static_cast<size_t>(kBandsPerCta) * band_words * sizeof(uint32_t);
   const int err = dynamic_smem(reinterpret_cast<const void*>(clahe_blend_kernel), smem);
   if (err != 0) return err;
-  const dim3 grid(tiles_y + 1, n);
-  clahe_blend_kernel<<<grid, kBlendThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      imgs, luts, out_map, out, h, w, tiles_x, th, ry, rx);
+  const int threads = std::min(kBlendThreads, (w + 31) / 32 * 32);
+  const dim3 grid((tiles_y + kBandsPerCta) / kBandsPerCta, n);
+  clahe_blend_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      imgs, luts, out_map, out, h, w, tiles_x, tiles_y, th, rows_max, ry, rx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,12 @@
 """A/B timing of the port's CUDA kernel sources in one process on one card.
 
     python -m tpu_mslesseg_torch.tools.kernel_ab [--parent DIR] [--ablate]
-        [--kernels stem,mask_union,clahe] [--stem-scales n] [--stem-dtype bfloat16]
+        [--kernels stem,mask_union,clahe,nms] [--stem-scales n] [--stem-dtype bfloat16]
 
-Builds each variant of ``csrc/stem.cu``, ``csrc/mask_union.cu`` and
-``csrc/clahe_tile_lut.cu`` with ``nvcc`` (the flags of ``_build``) into a
-temporary directory and times them on the same seeded inputs at the main
-path's launch shapes: the stem (by default scale n's bf16 instance) at 200
+Builds each variant of ``csrc/stem.cu``, ``csrc/mask_union.cu``,
+``csrc/clahe_tile_lut.cu`` and ``csrc/nms.cu`` with ``nvcc`` (the flags of
+``_build``) into a temporary directory and times them on the same seeded
+inputs at the main path's launch shapes: the stem (by default scale n's bf16 instance) at 200
 and 600 images of 640 (a wider instance at 200, phase 11's launch of
 ``chip_smoke.py``), each output also held against ``stem_reference``
 (f32 within atol = rtol = 2e-5, bf16 within ``stem.bf16_error_bound``); the bf16
@@ -15,7 +15,11 @@ dispatch's per-plane launch) and at 600 with about 85 (a GC dispatch's one
 launch); the CLAHE tile LUTs and the CLAHE blend at 200 L images of each
 plane shape (a CLAHE dispatch's three launches), uniform noise and
 background-heavy (the noise inside a centred disc of half the area, zeros
-around it), the blend beside its plain version. Each variant is timed in
+around it), the blend beside its plain version; NMS's suppression on the
+served-like clusters of ``tools/nms_cases.py`` (8,400 anchors, the top 300
+by score, conf 0.25, IoU 0.7) at 200 images (a plane of a served
+dispatch) and at 50 (a patient's plane in stage 3), beside its plain
+version, each output held bit for bit against this tree's kernel. Each variant is timed in
 blocks of CUDA-event-timed launches, in the order A, B, ..., B, A twice
 after a warm-up. Prints the card's name and power limit, then one JSON line
 per kernel and shape: each variant's median ms, its blocks, and its
@@ -24,21 +28,25 @@ largest difference from this tree's kernel.
 - ``--parent DIR``: also the kernels of another tree (an unpacked ``git
   archive`` of the parent commit), each through its own C interface.
 - ``--ablate``: also copies of this tree's stem (the instances of
-  ``--stem-dtype``: scale n's and the wide one's), tile-LUT and blend kernels with one part of their
-  work taken out (their outputs are wrong by design): what each part costs;
-  and the tile-LUT kernel with equal values aggregated across a warp
-  (``__match_any_sync``) before the histogram's atomics (the same LUTs by
-  another route).
-- ``--kernels``: which of the three sources to time (all by default).
+  ``--stem-dtype``: scale n's and the wide one's), tile-LUT, blend and NMS
+  kernels with one part of their work taken out (their outputs are wrong
+  by design): what each part costs (the blend: setup only, pixels only;
+  NMS: bits only, scan only); and other designs that give the same output:
+  the tile-LUT kernel with equal values aggregated across a warp
+  (``__match_any_sync``) before the histogram's atomics, the blend with 2
+  and 3 bands of rows a CTA, NMS with
+  clusters of 4 CTAs and with CTAs of 64 and 256 threads, and NMS in two
+  launches (the bits into device memory, then a warp an image scans them).
+- ``--kernels``: which of the four sources to time (all by default).
 - ``--stem-scales``, ``--stem-dtype``: the stem instances to time (any of
   n, s, m, l, x) and their type (bfloat16 or float32). The ablations of
   scale n's instance of the asked type are built and timed where n is asked
   for, those of the wide instance of that type where a wider scale is (in
   f32 both rewrite the one f32 kernel).
 
-The CLAHE kernels take less time than the host takes to launch them, so
-their lines also carry ``graph_ms``: the device time of a launch, from
-replays of a CUDA graph of 20 launches.
+The CLAHE and NMS kernels take less time than the host takes to launch
+them, so their lines also carry ``graph_ms``: the device time of a launch,
+from replays of a CUDA graph of 20 launches.
 """
 
 from __future__ import annotations
@@ -209,20 +217,88 @@ CLAHE_ABLATIONS = {
         "    if (scale < 0.0f) dst[0] = make_float4(out[0], out[1], out[2], out[3]);"), (
         "    dst[1] = make_float4(out[4], out[5], out[6], out[7]);",
         "    if (scale < 0.0f) dst[1] = make_float4(out[4], out[5], out[6], out[7]);"),),
-    "clahe_blend_without_lut_rows": ((
-        "k < 2 * per_row; k += blockDim.x", f"k < 2 * per_row{_NEVER}; k += blockDim.x"),),
-    "clahe_blend_without_table": ((
-        "k < (tiles_x + 1) * kBins; k += blockDim.x",
-        f"k < (tiles_x + 1) * kBins{_NEVER}; k += blockDim.x"),),
-    "clahe_blend_without_pixels": ((
-        "(k << 4) < e; k += blockDim.x) {\n    const size_t a = k << 4;\n    const size_t first",
-        f"(k << 4) < e{_NEVER}; k += blockDim.x) {{\n    const size_t a = k << 4;\n"
-        "    const size_t first"),),
+    "clahe_blend_setup_only": ((
+        "for (int x = threadIdx.x; x < w; x += blockDim.x) {",
+        f"for (int x = threadIdx.x; x < w{_NEVER}; x += blockDim.x) {{"),),
+    "clahe_blend_pixels_only": (("g < groups; g += blockDim.x", f"g < groups{_NEVER}; g += blockDim.x"),),
 }
 CLAHE_ABLATIONS["clahe_tile_lut_launch_only"] = sum(
     (CLAHE_ABLATIONS[f"clahe_tile_lut_without_{p}"] for p in ("histogram", "staging", "stores")), ())
-CLAHE_ABLATIONS["clahe_blend_launch_only"] = sum(
-    (CLAHE_ABLATIONS[f"clahe_blend_without_{p}"] for p in ("lut_rows", "table", "pixels")), ())
+# other designs of the blend, the same output: 2 and 3 bands of rows a CTA
+CLAHE_DESIGNS = {
+    f"clahe_blend_bands_{g}": (("constexpr int kBandsPerCta = 1;",
+                                f"constexpr int kBandsPerCta = {g};"),) for g in (2, 3)}
+
+# NMS variants, all built from nms.cu: ablations (`thr < -1.0f` never holds
+# for an IoU threshold), and other designs of the same keep: clusters of 4
+# CTAs, CTAs of 64 and 256 threads, and two launches (below)
+NMS_ABLATIONS = {
+    "nms_bits_only": (("    scan(n, k, kp, bits, ok, kept, keep + base);",
+                       "    if (thr < -1.0f) scan(n, k, kp, bits, ok, kept, keep + base);"),),
+    "nms_scan_only": (("  build_tiles(n, kp, box, area, ok, leader_bits,",
+                       "  if (thr < -1.0f) build_tiles(n, kp, box, area, ok, leader_bits,"),),
+}
+NMS_DESIGNS = {
+    "nms_cluster_4": (("constexpr int kCluster = 8;", "constexpr int kCluster = 4;"),),
+    **{f"nms_threads_{t}": (("constexpr int kThreads = 128;", f"constexpr int kThreads = {t};"),)
+       for t in (64, 256)}}
+# the other route: the same three steps in two launches, the bits in device
+# memory between them (`scratch`: b * words * kp unsigned), appended to nms.cu
+NMS_TWO_LAUNCHES = r"""
+namespace {
+
+__global__ void __launch_bounds__(kThreads, 4)
+    nms_bits_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
+                    unsigned* __restrict__ scratch, int k, float thr, float half_ulp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_valid;
+  const int words = words_of(k), kp = 32 * words;
+  float4* box = reinterpret_cast<float4*>(smem);
+  float* area = reinterpret_cast<float*>(box + kp);
+  uint8_t* ok = reinterpret_cast<uint8_t*>(area + kp);
+  const int img = blockIdx.x / kCluster, rank = blockIdx.x % kCluster;
+  const size_t base = static_cast<size_t>(img) * k;
+  const int n = stage(boxes, valid, base, k, kp, box, area, ok, &last_valid);
+  build_tiles(n, kp, box, area, ok, scratch + static_cast<size_t>(img) * words * kp,
+              rank * kWarps + (threadIdx.x >> 5), kCluster * kWarps, thr, half_ulp);
+}
+
+// a warp an image
+__global__ void __launch_bounds__(32)
+    nms_scan_kernel(const uint8_t* __restrict__ valid, const unsigned* __restrict__ scratch,
+                    uint8_t* __restrict__ keep, int k) {
+  __shared__ unsigned kept[kMaxK / 32];
+  const int words = words_of(k), kp = 32 * words;
+  const size_t base = static_cast<size_t>(blockIdx.x) * k;
+  int last = 0;
+  for (int i = threadIdx.x; i < k; i += 32) {
+    if (valid[base + i]) last = i + 1;
+  }
+  const int n = __reduce_max_sync(kFull, last);
+  scan(n, k, kp, scratch + static_cast<size_t>(blockIdx.x) * words * kp, valid + base, kept,
+       keep + base);
+  for (int i = 32 * words_of(n) + threadIdx.x; i < k; i += 32) keep[base + i] = 0;
+}
+
+}  // namespace
+
+extern "C" int nms_suppress_two_launches(const void* boxes, const void* valid, void* keep,
+                                         void* scratch, int b, int k, float thr, void* stream) {
+  if (b <= 0 || k <= 0 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  const int kp = 32 * words_of(k);
+  const size_t bytes = static_cast<size_t>(kp) * (sizeof(float4) + sizeof(float) + 1);
+  const float half_ulp =
+      thr >= 0x1p-60f && thr <= 1.0f ? (nextafterf(thr, INFINITY) - thr) * 0.5f : 0.0f;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  nms_bits_kernel<<<b * kCluster, kThreads, bytes, st>>>(
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
+      static_cast<unsigned*>(scratch), k, thr, half_ulp);
+  nms_scan_kernel<<<b, 32, 0, st>>>(static_cast<const uint8_t*>(valid),
+                                    static_cast<const unsigned*>(scratch),
+                                    static_cast<uint8_t*>(keep), k);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def _build_lib(args):
@@ -439,6 +515,8 @@ def _time_clahe(libs, gen, dev, stream):
     out_map = torch.from_numpy(enhance._LAB_BWD).to(dev)
     lut_libs = {n: lib for n, lib in libs.items() if n.startswith("clahe_tile_lut")}
     blend_libs = {"clahe_blend": libs["clahe_tile_lut"],
+                  **({"clahe_blend_parent": libs["clahe_tile_lut_parent"]}
+                     if "clahe_tile_lut_parent" in libs else {}),
                   **{n: lib for n, lib in libs.items() if n.startswith("clahe_blend")}}
     for kind in ("random", "background"):
         for h, w in ((182, 218), (182, 182), (218, 182)):
@@ -447,6 +525,8 @@ def _time_clahe(libs, gen, dev, stream):
             res = _compare(runs, 20, graph=list(runs))
             for name in res:
                 res[name]["max_diff"] = float((outs[name] - outs["clahe_tile_lut"]).abs().max())
+            if "clahe_tile_lut_parent" in res and res["clahe_tile_lut_parent"]["max_diff"]:
+                raise AssertionError(f"the parent's tile LUTs differ at {h}x{w}")
             print(json.dumps({"kernel": "clahe_tile_lut", "images": kind, "n": 200, "hw": [h, w],
                               "variants": res}), flush=True)
             luts = outs["clahe_tile_lut"]
@@ -460,6 +540,74 @@ def _time_clahe(libs, gen, dev, stream):
                     (outs[name].int() - outs["clahe_blend"].int()).abs().max())
             print(json.dumps({"kernel": "clahe_blend", "images": kind, "n": 200, "hw": [h, w],
                               "variants": res}), flush=True)
+            for name in ("clahe_blend_parent", "clahe_blend_plain", *CLAHE_DESIGNS):
+                if name in res and res[name]["max_diff"]:
+                    raise AssertionError(f"{name} differs from this tree's blend at {h}x{w}")
+
+
+def _nms_inputs(seed: int, b: int, dev):
+    """The top 300 candidates by score of `b` served-like images (8,400
+    anchors) and their validity at conf 0.25, as ``nms_batch`` hands them to
+    the suppression."""
+    from tpu_mslesseg_torch.tools import nms_cases
+
+    boxes, scores = (torch.from_numpy(a).to(dev) for a in nms_cases.clustered(seed, b, 8400))
+    top_scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    top = torch.gather(boxes, 1, order[:, :300, None].expand(b, 300, 4)).contiguous()
+    return top, (top_scores[:, :300] > 0.25).contiguous()
+
+
+def _nms_runs(libs, top, valid, iou: float, stream):
+    """Each library's suppression of `top` and `valid`: ``nms_suppress``, or
+    the two-launch variant with its scratch."""
+    b, k = valid.shape
+    words = (k + 31) // 32
+    scratch = torch.empty(b * words * 32 * words, dtype=torch.int32, device=top.device)
+    runs, outs = {}, {}
+    for name, lib in libs.items():
+        out = outs[name] = torch.empty((b, k), dtype=torch.bool, device=top.device)
+        if name == "nms_two_launches":
+            fn = lib.nms_suppress_two_launches
+            fn.argtypes = [P, P, P, P, I, I, F, P]
+            args = [top.data_ptr(), valid.data_ptr(), out.data_ptr(), scratch.data_ptr()]
+        else:
+            fn = lib.nms_suppress
+            fn.argtypes = [P, P, P, I, I, F, P]
+            args = [top.data_ptr(), valid.data_ptr(), out.data_ptr()]
+        fn.restype = ctypes.c_int
+        args += [b, k, iou]
+        # the lambda keeps the scratch alive
+        runs[name] = lambda st=stream, fn=fn, args=args, s=scratch: _checked(fn(*args, st))
+    return runs, outs
+
+
+def _time_nms(libs, dev, stream):
+    """The suppression of each library at 200 and 50 served-like images,
+    graph-timed, beside the plain version; each output against this tree's
+    kernel, and this tree's against the plain version."""
+    from tpu_mslesseg_torch.infer import nms
+
+    for b, seed in ((200, 0), (50, 1)):
+        top, valid = _nms_inputs(seed, b, dev)
+        runs, outs = _nms_runs(libs, top, valid, 0.7, stream)
+        kernels = list(runs)
+        runs["nms_plain"] = lambda: nms.suppress_ref(top, valid, 0.7)
+        res = _compare(runs, 20, graph=kernels)
+        plain = nms.suppress_ref(top, valid, 0.7)
+        for name in kernels:
+            res[name]["elements_differing"] = int((outs[name] != outs["nms"]).sum())
+        res["nms"]["elements_differing_from_plain"] = int((outs["nms"] != plain).sum())
+        n_valid = valid.sum(1).double()
+        print(json.dumps({"kernel": "nms", "n": b, "k": 300, "conf": 0.25, "iou": 0.7,
+                          "valid_per_image": float(n_valid.mean()),
+                          "kept_per_image": float(plain.sum()) / b,
+                          "valid_pairs": float((n_valid * (n_valid - 1) / 2).sum()),
+                          "variants": res}), flush=True)
+        for name in (*NMS_DESIGNS, "nms_two_launches", "nms_parent"):
+            if name in res and res[name]["elements_differing"]:
+                raise AssertionError(f"{name} differs from this tree's kernel at {b} images")
+        if res["nms"]["elements_differing_from_plain"]:
+            raise AssertionError(f"the kernel differs from the plain suppression at {b} images")
 
 
 def main(argv=None) -> int:
@@ -467,14 +615,14 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=Path, help="root of another tree to time beside this one")
     ap.add_argument("--ablate", action="store_true",
                     help="also time the kernels' ablations and the match-any tile LUTs")
-    ap.add_argument("--kernels", default="stem,mask_union,clahe",
-                    help="comma-separated sources to time: stem, mask_union, clahe")
+    ap.add_argument("--kernels", default="stem,mask_union,clahe,nms",
+                    help="comma-separated sources to time: stem, mask_union, clahe, nms")
     ap.add_argument("--stem-scales", default="n",
                     help="comma-separated stem instances to time: n, s, m, l, x")
     ap.add_argument("--stem-dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
-    if not which <= {"stem", "mask_union", "clahe"}:
+    if not which <= {"stem", "mask_union", "clahe", "nms"}:
         raise SystemExit(f"kernel_ab: unknown kernels {sorted(which)}")
     scales = args.stem_scales.split(",")
     if not set(scales) <= set(STEM_CHANNELS):
@@ -499,16 +647,18 @@ def main(argv=None) -> int:
         stem_src = {"stem": CSRC / "stem.cu"} if "stem" in which else {}
         union_src = {"mask_union": CSRC / "mask_union.cu"} if "mask_union" in which else {}
         clahe_src = {"clahe_tile_lut": CSRC / "clahe_tile_lut.cu"} if "clahe" in which else {}
+        nms_src = {"nms": CSRC / "nms.cu"} if "nms" in which else {}
         if args.parent:
             parent = args.parent / "tpu_mslesseg_torch" / "csrc"
-            for srcs in (stem_src, union_src, clahe_src):
+            for srcs in (stem_src, union_src, clahe_src, nms_src):
                 for name in list(srcs):
                     srcs[f"{name}_parent"] = parent / srcs[name].name
         if args.ablate:
             for srcs, base, ablations, region in (
                     (stem_src, "stem", n_ablations, n_region),
                     (stem_src, "stem", wide_ablations, wide_region),
-                    (clahe_src, "clahe_tile_lut", CLAHE_ABLATIONS, None)):
+                    (clahe_src, "clahe_tile_lut", {**CLAHE_ABLATIONS, **CLAHE_DESIGNS}, None),
+                    (nms_src, "nms", {**NMS_ABLATIONS, **NMS_DESIGNS}, None)):
                 if not srcs or (ablations is n_ablations and "n" not in scales) or (
                         ablations is wide_ablations and scales == ["n"]):
                     continue
@@ -521,7 +671,10 @@ def main(argv=None) -> int:
                         src = src.replace(old, new)
                     srcs[name] = tmp / f"{name}.cu"
                     srcs[name].write_text(head + src + tail)
-        jobs = [(n, s, tmp) for n, s in {**stem_src, **union_src, **clahe_src}.items()]
+            if nms_src:
+                nms_src["nms_two_launches"] = tmp / "nms_two_launches.cu"
+                nms_src["nms_two_launches"].write_text(nms_src["nms"].read_text() + NMS_TWO_LAUNCHES)
+        jobs = [(n, s, tmp) for n, s in {**stem_src, **union_src, **clahe_src, **nms_src}.items()]
         with ThreadPoolExecutor(len(jobs)) as pool:
             libs = dict(pool.map(_build_lib, jobs))
 
@@ -572,6 +725,8 @@ def main(argv=None) -> int:
                   flush=True)
         if clahe_src:
             _time_clahe({n: libs[n] for n in clahe_src}, gen, dev, stream)
+        if nms_src:
+            _time_nms({n: libs[n] for n in nms_src}, dev, stream)
     return 0
 
 
