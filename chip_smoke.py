@@ -185,7 +185,8 @@ pipeline's log lines):
    ``ejecutar_pipeline.main([... "--completo", "--entrenar",
    "--train_secuencial", "--epochs", "3"])`` in-process: per fold the
    dataset on the card, ``batch -1`` resolved by the card's probe (an empty
-   cache file), three epochs of YOLO11n-seg at 640 in bf16 (mosaic, train
+   cache file), three epochs of YOLO11n-seg at 640 in bf16, rematerialised
+   (``TrainConfig.remat``, on by default as the reference's; mosaic, train
    step, validation, ``results.csv``, checkpoints), then ``rapido`` serves
    every patient from the fold's ``best.pt``. Checks each fold's files
    (``args.yaml``, the dataset YAML, ``results.csv`` with three rows of
@@ -196,8 +197,9 @@ pipeline's log lines):
    with the fused stem, every volume/JSON pair of the serve, that the serve
    launched all six kernels, and that the same command again trains
    nothing. Prints the batch before and after the dataset rule, the probe's
-   peaks, seconds an epoch, a micro-step and a validation pass, images/s
-   and the peak memory.
+   peaks, seconds an epoch, a micro-step and a validation pass, images/s,
+   the model's ``remat``, the peak memory at the end of each fold's
+   training (since the phase began) and the phase's.
 
 16. train_parallel_cli: train every fold at once, then serve. Phase 15's
    inputs and command without ``--train_secuencial`` (the CLI's default for
@@ -215,8 +217,8 @@ pipeline's log lines):
    validation's confidence, 0.001, so the union holds kept boxes), and that the
    same command again trains nothing. Prints the batch, micro-steps an
    epoch, seconds a micro-step and a round of both folds, images/s, seconds
-   a validation pass, the phase's seconds and peak memory beside phase
-   15's.
+   a validation pass, the phase's seconds, the model's ``remat`` and the
+   peak memory at the end of training and the phase's, beside phase 15's.
 17. nccl_one_rank: ``init_process_group("nccl", world_size=1)`` through a
    file store: one data-parallel micro-step (YOLO11n-seg, 640, bf16, batch
    16) through the collective path, against the plain micro-step from the
@@ -250,6 +252,19 @@ pipeline's log lines):
    (``analizar_resultados`` on the demo's ``results/``,
    ``componer_resultados`` on phase 9's) and the native writer (built,
    100 PNGs of 218x182 with ``encode_gray``'s bytes, host seconds of each).
+19. train_remat (run after phase 14): the model's ``remat`` against the
+   stored step. YOLO11n-seg, 640, batch 16, ``max_fg`` 64, seeded weights,
+   three fixed synthetic batches (each micro-step applies), in bf16 and in
+   float32 with torch and cuDNN in their deterministic modes: the loss
+   parts, every gradient as the optimizer half begins, every running
+   statistic and the parameters and EMA after each micro-step, remat on
+   against off, bit for bit, or it raises with the largest difference and
+   whether the plain step repeats. Prints each micro-step's peak memory
+   for both settings, the median seconds a bf16 micro-step (default modes;
+   blocks off, on, on, off) and what ``batch -1`` resolves to (each from an
+   empty cache) for scale n and for the widest of x and m whose probes fit,
+   with the probes' peaks. No hand-written kernel launches (``train_remat``
+   in ``launches_by_path``).
 
 An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
 with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
@@ -261,7 +276,7 @@ Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
 the CLAHE kernels' background-heavy ms, the bound and what bounds it;
 ``launches`` counts phase 6's fold, which those times belong to,
 ``launches_by_path`` each driven path's (``train_paralelo`` phase 16's,
-``demo`` and ``capacidad`` phase 18's),
+``demo`` and ``capacidad`` phase 18's, ``train_remat`` phase 19's),
 and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
 patient's three launches of 50 images; the stem's ``scales`` holds phase
@@ -281,6 +296,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import gc
 import importlib.util
 import json
 import os
@@ -1687,7 +1703,8 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
     trained at full width with ``batch -1``, then every patient served from
     the fold's ``best.pt``; a second run trains nothing."""
     ds, modelo = write_train_tree(root, P)
-    rec = {"auto": [], "peaks": [], "folds": [], "steps": [], "val_s": [], "serve": []}
+    rec = {"auto": [], "peaks": [], "folds": [], "steps": [], "val_s": [], "serve": [],
+           "train_peak": []}
 
     def auto(*a, **kw):
         free, probes = torch.cuda.mem_get_info()[0], len(rec["peaks"])
@@ -1703,7 +1720,7 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
         state = a[0]
         rec["steps"].append({"fold": len(rec["folds"]) + 1, "step": state.step - 1,
                              "applied": bool(out["applied"]), "s": sec, "cfg": state.cfg,
-                             "spe": state.steps_per_epoch,
+                             "spe": state.steps_per_epoch, "remat": state.model.remat,
                              "model": (str(state.model.dtype).removeprefix("torch."),
                                        state.model.cfg.scale, state.cfg.imgsz)})
 
@@ -1721,7 +1738,9 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
         (P.autobatch, "auto_batch_size", auto),
         (P.autobatch, "probe_peak", peak),
         (P.engine, "train_fold", timed_wrapper(
-            torch, P.engine.train_fold, lambda sec, a, out: rec["folds"].append((sec, out)))),
+            torch, P.engine.train_fold, lambda sec, a, out: (
+                rec["folds"].append((sec, out)),
+                rec["train_peak"].append(torch.cuda.max_memory_allocated())))),
         (P.trainer, "train_step", timed_wrapper(torch, P.trainer.train_step, step_record)),
         (P.validate, "run_validation", timed_wrapper(
             torch, P.validate.run_validation, lambda sec, a, out: rec["val_s"].append(sec))),
@@ -1832,7 +1851,8 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
                "s_per_micro_step_median": float(np.median(later)) if later else None,
                "s_per_validation_pass": rec["val_s"],
                "images_per_s": batch / float(np.median(later)) if later else None,
-               "max_memory_allocated_bytes": peak}
+               "max_memory_allocated_bytes": peak, "train_peak_bytes": rec["train_peak"],
+               "remat": sorted({s["remat"] for s in rec["steps"]})}
     emit({"phase": "train_cli", "model": "YOLO11n-seg", "trained": sorted(trained),
           "patients": len(CLI_PATIENTS), "k_folds": CLI_K_FOLDS, "epochs": TRAIN_CLI_EPOCHS,
           "summaries": [s for _, s in rec["folds"]], "launches": launches,
@@ -1850,7 +1870,8 @@ def phase_train_cli(torch, P, root: Path, counters, dev, card) -> dict:
               "s_per_micro_step_median": float(np.median(later)) if later else None,
               "s_per_validation_pass": rec["val_s"],
               "images_per_s": batch / float(np.median(later)) if later else None,
-              "max_memory_allocated_bytes": peak,
+              "max_memory_allocated_bytes": peak, "remat": figures["remat"],
+              "train_peak_bytes": rec["train_peak"],
               "memory_allocated_before_the_phase_bytes": held_before, **card}})
     return {"launches": launches, "figures": figures}
 
@@ -1883,7 +1904,7 @@ def phase_train_parallel_cli(torch, P, root: Path, counters, dev, card, sequenti
                              "applied": bool(out["applied"]), "cfg": state.cfg,
                              "spe": state.steps_per_epoch,
                              "finite": all(bool(torch.isfinite(out[k])) for k in
-                                           P.trainer.LOSS_PARTS),
+                                           P.trainer.LOSS_PARTS), "remat": state.model.remat,
                              "model": (str(state.model.dtype).removeprefix("torch."),
                                        state.model.cfg.scale, state.cfg.imgsz)})
 
@@ -1893,6 +1914,7 @@ def phase_train_parallel_cli(torch, P, root: Path, counters, dev, card, sequenti
         torch.cuda.synchronize()
         after = read_launches(counters)
         rec["train"].append({k: after[k] - before[k] for k in after})
+        rec["train_peak"] = torch.cuda.max_memory_allocated()
         return out
 
     def serve(*a, **kw):
@@ -2040,7 +2062,8 @@ def phase_train_parallel_cli(torch, P, root: Path, counters, dev, card, sequenti
                "s_per_micro_step_of_all_folds_median": float(np.median(rounds)),
                "s_per_validation_pass": rec["val_s"],
                "images_per_s": len(folds) * batch / float(np.median(rounds)),
-               "max_memory_allocated_bytes": peak}
+               "max_memory_allocated_bytes": peak, "train_peak_bytes": rec["train_peak"],
+               "remat": sorted({s["remat"] for s in rec["steps"]})}
     emit({"phase": "train_parallel_cli", "model": "YOLO11n-seg", "trained": sorted(trained),
           "patients": len(CLI_PATIENTS), "k_folds": CLI_K_FOLDS, "epochs": TRAIN_CLI_EPOCHS,
           "stages": sorted(stages), "launches": launches, "train_launches": rec["train"][0],
@@ -2131,6 +2154,221 @@ def phase_nccl_one_rank(torch, P, dev, card) -> None:
           "loss": {k: float(plain[0][k]) for k in ("loss",) + T.LOSS_PARTS},
           "note": "two ranks cannot be run on one card: the two-rank steps are the CPU "
                   "tests' (tests/test_torch_port_distributed.py, gloo)", **card})
+
+
+# ---- phase 19: rematerialised training against the stored step ------------
+REMAT_STEPS = 3  # micro-steps compared; the warmup's first gaps are 1, so each applies
+REMAT_TIMED = 8  # timed micro-steps a block, after one untimed; blocks off, on, on, off
+REMAT_POOL = 32  # synthetic slices of the batch -1 probes' dataset
+REMAT_WIDE = ("x", "m")  # the widest scale whose probes fit, x first
+
+
+def remat_run(torch, P, dev, cfg, sd, dtype, remat: bool, batches) -> list:
+    """A fresh state from `sd` through one micro-step a batch, the model
+    built with `remat`. Per micro-step: the loss parts, whether it applied,
+    the gradients as the optimizer half began, then the running statistics,
+    the parameters and the EMA, and the micro-step's peak memory above what
+    was allocated before it."""
+    T = P.trainer
+    model, _ = P.create_model(nc=1, scale="n", dtype=dtype, remat=remat)
+    state = T.init_train_state(model, cfg, len(batches), variables=sd, device=dev)
+    grads, rows = [], []
+    real = T.optimizer_step
+
+    def read_grads(st):
+        grads.append({n: p.grad.clone() for n, p in st.model.named_parameters()})
+        return real(st)
+
+    with switched(T, "optimizer_step", read_grads):
+        for batch in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            m = T.train_step(state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            rows.append({
+                "parts": {k: m[k].clone() for k in ("loss",) + T.LOSS_PARTS},
+                "applied": bool(m["applied"]), "grads": grads[-1],
+                "stats": {k: v.clone() for k, v in state.model.state_dict().items()
+                          if "running_" in k},
+                "params": {n: p.detach().clone() for n, p in state.model.named_parameters()},
+                "ema": {k: v.clone() for k, v in state.ema.items()}, "peak": peak})
+    return rows
+
+
+def remat_differences(plain: list, remat: list) -> list:
+    """(micro-step, what, key, largest absolute difference) for every
+    tensor in which the two runs differ."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(plain, remat)):
+        if a["applied"] != b["applied"]:
+            diffs.append((i, "applied", "", float("nan")))
+        for what in ("parts", "grads", "stats", "params", "ema"):
+            for k, v in a[what].items():
+                if not b[what][k].equal(v):
+                    diffs.append((i, what, k, float((b[what][k].float() - v.float()).abs().max())))
+    return diffs
+
+
+def remat_step_s(torch, P, dev, cfg, sd, remat: bool, batches) -> list:
+    """Seconds of REMAT_TIMED bf16 micro-steps (host clock around work that
+    ends in a synchronise) of a fresh state, after one untimed."""
+    T = P.trainer
+    model, _ = P.create_model(nc=1, scale="n", dtype=torch.bfloat16, remat=remat)
+    state = T.init_train_state(model, cfg, len(batches), variables=sd, device=dev)
+    T.train_step(state, batches[0])
+    out = []
+    for i in range(REMAT_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.train_step(state, batches[(i + 1) % len(batches)])
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def remat_pool(torch, P, dev):
+    """REMAT_POOL synthetic 218x182 slices with one to three elliptic
+    lesions each, as stage 2's dataset (``data.slice_dataset``) at IMGSZ."""
+    rng = np.random.default_rng(19)
+    h, w = 218, 182
+    imgs = rng.integers(20, 120, (REMAT_POOL, h, w), dtype=np.uint8)
+    masks = np.zeros((REMAT_POOL, h, w), np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(REMAT_POOL):
+        for _ in range(int(rng.integers(1, 4))):
+            cy, cx = rng.uniform(40, h - 40), rng.uniform(40, w - 40)
+            ry, rx = rng.uniform(5, 20, 2)
+            masks[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = 1
+    imgs[masks > 0] = 220
+    meta = [("S0", "FLAIR", i) for i in range(REMAT_POOL)]
+    return P.tdata.slice_dataset(torch.from_numpy(imgs).to(dev), masks, meta, train_size=IMGSZ)
+
+
+def remat_batch(torch, P, dev, pool, scale: str, remat: bool) -> dict:
+    """``autobatch.auto_batch_size`` for a bf16 model of `scale` built with
+    `remat` on `pool`, with the probe's peaks (the cache is the caller's
+    empty file, so both probes run)."""
+    model, _ = P.create_model(nc=1, scale=scale, dtype=torch.bfloat16, remat=remat)
+    cfg = P.trainer.TrainConfig(imgsz=IMGSZ, max_fg=64, remat=remat)
+    acfg = P.augment.AugConfig(imgsz=IMGSZ, max_inst=pool.max_inst, mosaic=True)
+    peaks = []
+    real = P.autobatch.probe_peak
+
+    def probe(*a, **kw):
+        peaks.append((a[4], real(*a, **kw)))
+        return peaks[-1][1]
+
+    gc.collect()  # what an earlier probe left is free for this one's budget
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    try:
+        with switched(P.autobatch, "probe_peak", probe):
+            batch = P.autobatch.auto_batch_size(model, cfg, pool, acfg, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        return {"batch": None, "out_of_memory": str(e).splitlines()[0], "probe_peaks_bytes": peaks,
+                "free_bytes": free}
+    if [b for b, _ in peaks] != list(P.autobatch.PROBES):
+        raise AssertionError(f"scale {scale}, remat {remat}: batch -1 was not probed: {peaks}")
+    return {"batch": batch, "probe_peaks_bytes": peaks, "free_bytes": free}
+
+
+def phase_train_remat(torch, P, dev, card) -> None:
+    """Phase 19: the model's ``remat`` (stage 2's default) against the
+    stored step at full width: YOLO11n-seg, imgsz 640, batch 16, ``max_fg``
+    64, seeded weights, REMAT_STEPS fixed synthetic batches, in bf16 and in
+    float32 (TF32 off), with torch and cuDNN in their deterministic modes:
+    every loss part, every gradient as the optimizer half begins, every
+    running statistic and the parameters and EMA after each micro-step (each
+    applies) equal, bit for bit. Then, for both settings: each micro-step's
+    peak memory, the median seconds a bf16 micro-step (default modes, blocks
+    off, on, on, off), and what ``batch -1`` resolves to for scale n and the
+    widest scale of REMAT_WIDE whose probes fit, each from an empty cache."""
+    T = P.trainer
+    cfg = T.TrainConfig(batch_size=16, imgsz=IMGSZ, max_fg=64, seed=4)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                P.synthetic_batch(400 + i, cfg.batch_size, IMGSZ, 64).items()}
+               for i in range(REMAT_STEPS)]
+    model, _ = P.create_model(nc=1, scale="n", dtype=torch.bfloat16)
+    sd = P.init_variables(model, cfg.seed)
+    del model
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    compared, failures = {}, []
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            runs = {remat: remat_run(torch, P, dev, cfg, sd, dtype, remat, batches)
+                    for remat in (False, True)}
+            diffs = remat_differences(runs[False], runs[True])
+            row = {"micro_steps": REMAT_STEPS,
+                   "applied": [r["applied"] for r in runs[True]],
+                   "loss": [float(r["parts"]["loss"]) for r in runs[True]],
+                   "tensors_compared_a_step": sum(len(runs[True][0][w]) for w in
+                                                  ("parts", "grads", "stats", "params", "ema")),
+                   "differing": len(diffs), "peak_bytes_off": [r["peak"] for r in runs[False]],
+                   "peak_bytes_on": [r["peak"] for r in runs[True]]}
+            if diffs:
+                again = remat_differences(runs[False], remat_run(torch, P, dev, cfg, sd, dtype,
+                                                                 False, batches))
+                row.update(largest=max(diffs, key=lambda d: d[3]), first=diffs[:10],
+                           plain_repeats_bit_for_bit=not again)
+                failures.append(name)
+            if not all(r["applied"] for r in runs[True]) or not all(
+                    bool(torch.isfinite(v)) for r in runs[True] for v in r["parts"].values()):
+                failures.append(f"{name}: a micro-step did not apply, or a loss is not finite")
+            compared[name] = row
+            del runs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+    if failures:
+        emit({"phase": "train_remat", "compared": compared, **card})
+        raise AssertionError(f"remat on and off differ: {failures}")
+
+    step_s = {False: [], True: []}
+    for remat in (False, True, True, False):
+        step_s[remat] += remat_step_s(torch, P, dev, cfg, sd, remat, batches)
+        torch.cuda.empty_cache()
+
+    pool = remat_pool(torch, P, dev)
+    resolved = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remat_") as tmp:
+        old_cache = os.environ.get("TPU_MSLESSEG_AUTOBATCH_CACHE")
+        os.environ["TPU_MSLESSEG_AUTOBATCH_CACHE"] = str(Path(tmp) / "autobatch.json")
+        try:
+            for scale in ("n",) + REMAT_WIDE:
+                resolved[scale] = {f"remat_{'on' if r else 'off'}": remat_batch(
+                    torch, P, dev, pool, scale, r) for r in (False, True)}
+                if scale != "n" and all(v["batch"] for v in resolved[scale].values()):
+                    break
+        finally:
+            if old_cache is None:
+                os.environ.pop("TPU_MSLESSEG_AUTOBATCH_CACHE")
+            else:
+                os.environ["TPU_MSLESSEG_AUTOBATCH_CACHE"] = old_cache
+    del pool
+    torch.cuda.empty_cache()
+    wide = next((s for s in REMAT_WIDE if s in resolved and
+                 all(v["batch"] for v in resolved[s].values())), None)
+    if resolved["n"]["remat_off"]["batch"] is None or resolved["n"]["remat_on"]["batch"] is None:
+        raise AssertionError(f"batch -1 at scale n did not resolve: {resolved['n']}")
+    median = {r: float(np.median(v)) for r, v in step_s.items()}
+    emit({"phase": "train_remat", "model": "YOLO11n-seg", "imgsz": IMGSZ,
+          "batch_size": cfg.batch_size, "max_fg": cfg.max_fg,
+          "bit_for_bit": {k: v["differing"] == 0 for k, v in compared.items()},
+          "deterministic_modes": True, "compared": compared,
+          "rematerialised_layers": list(P.YOLO11Seg.REMAT_LAYERS),
+          "bf16_s_per_micro_step_median": {"remat_off": median[False], "remat_on": median[True]},
+          "bf16_s_per_micro_step": {"remat_off": step_s[False], "remat_on": step_s[True]},
+          "time_ratio_on_over_off": median[True] / median[False],
+          "batch_minus_1": resolved, "widest_scale_resolved": wide,
+          "budget_fraction": P.autobatch.DEFAULT_FRACTION, **card})
 
 
 # ---- phase 18: the demo, capacity mode, the extras, the native writer ------
@@ -2583,7 +2821,7 @@ def main() -> int:
     from tpu_mslesseg_torch.io import nifti, png
     from tpu_mslesseg_torch.model import bn_act, stem
     from tpu_mslesseg_torch.model.yolo11 import (
-        STRIDES, create_model, create_model_from_env, fold_gray_stem, init_variables,
+        STRIDES, YOLO11Seg, create_model, create_model_from_env, fold_gray_stem, init_variables,
     )
     from tpu_mslesseg_torch.pipeline import ejecutar_pipeline as orch
     from tpu_mslesseg_torch.pipeline import labels, logging_setup, rapido
@@ -2596,8 +2834,9 @@ def main() -> int:
     from tpu_mslesseg_torch.tools.train_batches import synthetic_batch as train_batch
     from tpu_mslesseg_torch.core import distributed, mesh
     from tpu_mslesseg_torch.train import (
-        autobatch, engine, engine_parallel, fold_parallel, trainer, validate,
+        augment, autobatch, engine, engine_parallel, fold_parallel, trainer, validate,
     )
+    from tpu_mslesseg_torch.train import data as tdata
     from tpu_mslesseg_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from tpu_mslesseg_torch.demo import ejecutar_demo, entrenar_capacidad
     from tpu_mslesseg_torch.extras import analizar_pacientes_dsc, componer_resultados
@@ -2621,7 +2860,7 @@ def main() -> int:
         fold_parallel=fold_parallel, distributed=distributed, mesh=mesh,
         demo=ejecutar_demo, capacidad=entrenar_capacidad, analizar=analizar_pacientes_dsc,
         native=native, gif=gif, figure=figure, predictor=predictor, labels=labels, nms=nms,
-        nms_cases=nms_cases,
+        nms_cases=nms_cases, YOLO11Seg=YOLO11Seg, augment=augment, tdata=tdata,
     )
 
     dev = torch.device(DEVICE)
@@ -3234,6 +3473,12 @@ def main() -> int:
     phase_train_f32(torch, P, dev)
     torch.cuda.empty_cache()
 
+    # ---- phase 19: rematerialised training against the stored step ---------
+    zero_launches(counters)
+    phase_train_remat(torch, P, dev, card)
+    remat_launches = read_launches(counters)  # the train step holds no kernel: all 0
+    torch.cuda.empty_cache()
+
     # ---- phase 15: train a fold through the CLI, then serve it -------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_cli = phase_train_cli(torch, P, Path(tmp), counters, dev, card)
@@ -3260,7 +3505,7 @@ def main() -> int:
                "cli_chain": chain["launches"], "cli_default": default["launches"],
                "lote_scale_s": scale_s_launches, "lote_scale_m_f32": scale_m_launches,
                "lote_scale_n_f32": scale_n_launches,
-               "train": train_launches,
+               "train": train_launches, "train_remat": remat_launches,
                "train_cli_then_serve": train_cli["launches"],
                "train_paralelo": train_par["launches"], "demo": demo["launches"],
                "capacidad": demo["capacity_launches"]}

@@ -11,8 +11,9 @@ are the port's only evidence for more than one rank (the card's machine has
 one card).
 
 * The data-parallel step over one batch split across 2 ranks
-  (``DataAxis(global_batch=True)``, the sequential engine's semantics)
-  equals one process's step on the concatenated batch: loss parts within
+  (``DataAxis(global_batch=True)``, the sequential engine's semantics),
+  with the model's ``remat`` off and on, equals one process's step on the
+  concatenated batch: loss parts within
   rtol 1e-3 (the reference's ``tests/test_data_parallel.py`` holds 1 device
   against 8 to that), gradients within 1e-3 of each leaf's largest (but for
   the three C2PSA BatchNorm biases whose gradient is zero analytically and
@@ -266,8 +267,8 @@ def test_a_pure_data_grid_over_two_ranks(tmp_path):
 QUIET = dict(epochs=1, batch_size=B, imgsz=S, max_fg=8, warmup_epochs=0.0)
 
 
-def _state(cfg=QUIET):
-    model, _ = create_model()
+def _state(cfg=QUIET, remat=False):
+    model, _ = create_model(remat=remat)
     return trainer.init_train_state(model, TrainConfig(**cfg), 2,
                                     variables=init_variables(model, 0), device="cpu")
 
@@ -282,8 +283,8 @@ def _result(state, m):
             "stats": {n: b.clone() for n, b in state.model.named_buffers() if "running" in n}}
 
 
-def _dp_rank(rank, world, tmp, global_batch):
-    state = _state()
+def _dp_rank(rank, world, tmp, global_batch, remat=False):
+    state = _state(remat=remat)
     axis = mesh.DataAxis(dist.group.WORLD, tuple(range(world)), rank, global_batch)
     part = axis.local_slice(B)
     batch = {k: v[part] for k, v in _batch().items()}
@@ -300,8 +301,12 @@ def one_process():
                        for h in (0, 1)]}
 
 
-def test_two_ranks_over_one_batch_equal_one_process_on_it(tmp_path, one_process):
-    outs = _spawn(_dp_rank, 2, tmp_path, True)
+@pytest.mark.parametrize("remat", [False, True])
+def test_two_ranks_over_one_batch_equal_one_process_on_it(tmp_path, one_process, remat):
+    """With `remat` each rank recomputes its rematerialised blocks in the
+    backward, after the step has left the BatchNorm axis: the recompute
+    normalises over the whole batch again, with the same collectives."""
+    outs = _spawn(_dp_rank, 2, tmp_path, True, remat)
     want = one_process["whole"]
     for k in PARTS:
         assert want["metrics"][k] > 0.01

@@ -137,10 +137,11 @@ def runs(tmp_path_factory):
         out["jax"] = (root / "jax", log, summary)
     with pytest.MonkeyPatch.context() as mp:
         log = _spy(mp, tengine, tfp, ttrainer, tval, tckpt, port=True)
-        model, _ = t_create(nc=1, scale="n")
+        model, _ = t_create(nc=1, scale="n", remat=False)
         summary = tengine.train_folds_parallel(model=model, dataset_dir=ds,
-                                               output_root=root / "port", cfg=TConfig(**OPTS),
-                                               device="cpu", **RUN)
+                                               output_root=root / "port",
+                                               cfg=TConfig(remat=False, **OPTS), device="cpu",
+                                               **RUN)
         out["port"] = (root / "port", log, summary)
     yield out
     shutil.rmtree(root, ignore_errors=True)  # checkpoints: hundreds of MB
@@ -173,8 +174,7 @@ def test_fold_artifacts_equal_jax(runs, fold):
     jdir, tdir = runs["jax"][0] / f"fold{fold}", runs["port"][0] / f"fold{fold}"
     j = yaml.safe_load((jdir / "args.yaml").read_text())
     t = yaml.safe_load((tdir / "args.yaml").read_text())
-    assert j.pop("remat") is False  # the JAX package's switch: not in the port
-    assert t == j and t["fold_test"] == fold and t["batch_size"] == 4
+    assert t == j and t["fold_test"] == fold and t["batch_size"] == 4 and t["remat"] is False
 
     jr, tr = _rows(jdir), _rows(tdir)
     assert tr[0] == jr[0] == ttrainer.RESULTS_HEADER

@@ -116,8 +116,32 @@ def test_the_yaml_files_parse_as_the_jax_packages(stage_run, tmp_path):
         plano="axial", modalidades=["FLAIR"], mejora="CLAHE", num_cortes=6, fold_test=1,
         k_folds=2)
     want = yaml.safe_load((jfold / "args.yaml").read_text())
-    want.pop("remat")  # the JAX package's rematerialisation switch: not in the port
-    assert yaml.safe_load((fold / "args.yaml").read_text()) == want
+    assert yaml.safe_load((fold / "args.yaml").read_text()) == want and want["remat"] is True
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_the_stage_builds_its_model_with_the_configs_remat(tmp_path, remat):
+    """``create_model(..., remat=cfg.remat)``, fold by fold and for every
+    fold at once, as the reference's stage 2 (``:100-102``, ``:247-249``);
+    the CLI's configuration keeps the default, on."""
+    root = tmp_path / "exp"
+    write_dataset(root, pids=("P1", "P30"))
+    cfg = TrainConfig(epochs=1, batch_size=4, imgsz=64, amp=False, remat=remat)
+    built = []
+    with pytest.MonkeyPatch.context() as mp, Env(cwd=root):
+        mp.setattr(tengine, "train_fold",
+                   lambda **kw: built.append(("fold", kw["model"].remat, kw["cfg"].remat)) or {})
+        mp.setattr(train_stage.engine_parallel, "train_folds_parallel",
+                   lambda **kw: built.append(("all", kw["model"].remat, kw["cfg"].remat)) or {})
+        train_stage.ejecutar_flujo_train(
+            ConfigTrain(modelo=TModelo(**MODELO), epochs=1, fold_test=1, root=root),
+            train_cfg=cfg, device="cpu")
+        train_stage.ejecutar_train_paralelo(TModelo(**MODELO), 1, train_cfg=cfg, device="cpu")
+        seen = []
+        mp.setattr(train_stage, "ejecutar_flujo_train", lambda *a, **kw: seen.append(kw))
+        train_stage.main(STAGE_ARGS)
+    assert built == [("fold", remat, remat), ("all", remat, remat)]
+    assert seen[0]["train_cfg"].remat is True is JConfig().remat
 
 
 @pytest.mark.parametrize("value", [None, True, False, 0, -1, 7, 0.002, 1e-12, 1e12, -2.5e-07,

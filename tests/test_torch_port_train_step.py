@@ -29,7 +29,13 @@ after the first apply (8% in the loss at the second micro-step). So:
   gradients within 1% of each leaf's largest, parameters and EMA at atol
   1e-4, and their *updates* within 10% of the leaf's largest update on at
   least 99% of a leaf's elements (the rest are sign flips of gradients
-  near zero), the three biases above left out.
+  near zero), the three biases above left out;
+* the same whole step with the port's ``remat`` on (stage 2's default):
+  bit for bit the plain step, and so at the same tolerances against the
+  reference; and one reference micro-step built as stage 2 builds it
+  (``remat=True``, from the reference's state before the third micro-step)
+  against the port's rematerialised third micro-step, at the same
+  tolerances.
 """
 
 
@@ -84,11 +90,11 @@ def seeded():
     return jmodel, _np({"params": state.params, "batch_stats": state.batch_stats})
 
 
-def _port_state(variables, **kw):
-    tmodel, _ = t_create(nc=1, scale="n")
+def _port_state(variables, remat=False, **kw):
+    tmodel, _ = t_create(nc=1, scale="n", remat=remat)
     sd = bridge.state_dict_from_reference(variables, tmodel)
-    return ttr.init_train_state(tmodel, ttr.TrainConfig(**BASE, **kw), SPE, variables=sd,
-                                device="cpu"), sd
+    return ttr.init_train_state(tmodel, ttr.TrainConfig(**BASE, remat=remat, **kw), SPE,
+                                variables=sd, device="cpu"), sd
 
 
 # ---------------------------------------------------------------------------
@@ -210,40 +216,65 @@ GRAD_STEP = 2  # a micro-step without an apply: the sum since the last apply is 
 
 @pytest.fixture(scope="module")
 def step_runs(seeded):
+    """The reference's step and the port's, with ``remat`` off (``torch``)
+    and on (``torch_remat``), from the same weights on the same batches;
+    then one reference micro-step built as stage 2 builds it (``remat``,
+    the configuration's default) from the reference's state before
+    `GRAD_STEP`, on that step's batch (``jax_remat``)."""
     jmodel, variables = seeded
     quiet = dict(warmup_bias_lr=0.0)
     jcfg = jtr.TrainConfig(**BASE, **quiet)
     jstate = jtr.init_train_state(jmodel, jcfg, SPE)
     step = jtr.make_train_step(jmodel, jcfg, SPE)
-    tstate, init_sd = _port_state(variables, **quiet)
-    rows = {"jax": [], "torch": []}
-    grads = None
+    ports = ("torch", "torch_remat")
+    built = {name: _port_state(variables, remat=name == "torch_remat", **quiet)
+             for name in ports}
+    tstates, init_sd = {name: b[0] for name, b in built.items()}, built["torch"][1]
+    rows = {"jax": [], "torch": [], "torch_remat": []}
+    grads, stats = {}, {}
     for i in range(N_STEPS):
-        batch = _batch(i)
-        jstate, jm = step(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        tm = ttr.train_step(tstate, batch)
-        rows["jax"].append({k: float(jm[k]) for k in PARTS})
-        rows["torch"].append({**{k: float(tm[k]) for k in PARTS}, "applied": tm["applied"]})
+        batch = {k: jnp.asarray(v) for k, v in _batch(i).items()}
         if i == GRAD_STEP:
-            grads = (bridge.tensors_from_reference(_np(jstate.grad_accum)),
-                     {n: p.grad.clone() for n, p in tstate.model.named_parameters()})
-    return {"rows": rows, "grads": grads, "tstate": tstate, "init": init_sd,
+            before = jax.tree_util.tree_map(jnp.copy, jstate)  # the step donates its state
+        jstate, jm = step(jstate, batch)
+        rows["jax"].append({k: float(jm[k]) for k in PARTS})
+        for name, tstate in tstates.items():
+            tm = ttr.train_step(tstate, _batch(i))
+            rows[name].append({**{k: float(tm[k]) for k in PARTS}, "applied": tm["applied"]})
+            if i == GRAD_STEP:
+                grads[name] = {n: p.grad.clone() for n, p in tstate.model.named_parameters()}
+                stats[name] = {k: v.clone() for k, v in tstate.model.state_dict().items()
+                               if "running_" in k}
+        if i == GRAD_STEP:
+            grads["jax"] = bridge.tensors_from_reference(_np(jstate.grad_accum))
+            jremat, _ = j_create(nc=1, scale="n", remat=jcfg.remat)
+            rstate, rm = jtr.make_train_step(jremat, jcfg, SPE)(before, batch)
+            jax_remat = {"parts": {k: float(rm[k]) for k in PARTS},
+                         "grads": bridge.tensors_from_reference(_np(rstate.grad_accum)),
+                         "batch_stats": bridge.tensors_from_reference(_np(rstate.batch_stats),
+                                                                      "batch_stats")}
+    return {"rows": rows, "grads": grads, "stats": stats, "tstate": tstates, "init": init_sd,
             "jax": _np({"params": jstate.params, "ema": jstate.ema_params,
-                        "batch_stats": jstate.batch_stats}), "variables": variables}
+                        "batch_stats": jstate.batch_stats}), "jax_remat": jax_remat,
+            "variables": variables}
 
 
-def test_whole_step_loss_parts(step_runs):
+def _hold_loss_parts(step_runs, port):
     rows = step_runs["rows"]
-    for i, (got, want) in enumerate(zip(rows["torch"], rows["jax"])):
+    for i, (got, want) in enumerate(zip(rows[port], rows["jax"])):
         for k in PARTS:
             assert want[k] > 0.1
             np.testing.assert_allclose(got[k], want[k], rtol=1e-3, err_msg=f"step {i}, {k}")
-    assert [r["applied"] for r in rows["torch"]] == [True, True, False, True, False]
-    assert step_runs["tstate"].applies == 3
+    assert [r["applied"] for r in rows[port]] == [True, True, False, True, False]
+    assert step_runs["tstate"][port].applies == 3
 
 
-def test_whole_step_accumulated_gradients(step_runs):
-    want, got = step_runs["grads"]
+def test_whole_step_loss_parts(step_runs):
+    _hold_loss_parts(step_runs, "torch")
+
+
+def _hold_gradients(want, got):
+    """`got` within 1% of each leaf's largest gradient in `want`."""
     assert set(want) == set(got)
     alive = 0
     for name in want:
@@ -256,18 +287,31 @@ def test_whole_step_accumulated_gradients(step_runs):
         assert float(want[name].abs().max()) < 1e-5 and float(got[name].abs().max()) < 1e-5
 
 
-def test_whole_step_batchnorm_statistics(step_runs):
-    sd = step_runs["tstate"].model.state_dict()
-    want = bridge.tensors_from_reference(step_runs["jax"]["batch_stats"], "batch_stats")
+def test_whole_step_accumulated_gradients(step_runs):
+    _hold_gradients(step_runs["grads"]["jax"], step_runs["grads"]["torch"])
+
+
+def _hold_batchnorm(sd, want, init):
+    """The running statistics `sd` within 2e-4 of `want`, all moved from `init`."""
     assert len(want) > 150
     for key, w in want.items():
         np.testing.assert_allclose(sd[key].numpy(), w.numpy(), atol=2e-4, rtol=0, err_msg=key)
-        assert not torch.equal(sd[key], step_runs["init"][key])
+        assert not torch.equal(sd[key], init[key])
+
+
+def test_whole_step_batchnorm_statistics(step_runs):
+    _hold_batchnorm(step_runs["tstate"]["torch"].model.state_dict(),
+                    bridge.tensors_from_reference(step_runs["jax"]["batch_stats"], "batch_stats"),
+                    step_runs["init"])
 
 
 @pytest.mark.parametrize("what", ["params", "ema"])
 def test_whole_step_parameters_and_ema(step_runs, what):
-    tstate, init = step_runs["tstate"], step_runs["init"]
+    _hold_parameters(step_runs, "torch", what)
+
+
+def _hold_parameters(step_runs, port, what):
+    tstate, init = step_runs["tstate"][port], step_runs["init"]
     got = dict(tstate.model.named_parameters()) if what == "params" else tstate.ema
     want = bridge.tensors_from_reference(step_runs["jax"][what])
     assert set(want) == set(got)
@@ -282,6 +326,44 @@ def test_whole_step_parameters_and_ema(step_runs, what):
             continue
         share = float(((dg - dw).abs() > 0.1 * top).float().mean())
         assert share <= 0.01, (key, share, top)
+
+
+def test_whole_step_with_remat_against_the_reference(step_runs):
+    """The port's rematerialised step, as stage 2 trains, against the same
+    reference run at the same tolerances."""
+    port = "torch_remat"
+    _hold_loss_parts(step_runs, port)
+    _hold_gradients(step_runs["grads"]["jax"], step_runs["grads"][port])
+    _hold_batchnorm(step_runs["tstate"][port].model.state_dict(),
+                    bridge.tensors_from_reference(step_runs["jax"]["batch_stats"], "batch_stats"),
+                    step_runs["init"])
+    for what in ("params", "ema"):
+        _hold_parameters(step_runs, port, what)
+
+
+def test_whole_step_with_remat_equals_the_plain_step_bit_for_bit(step_runs):
+    rows, grads, stats = step_runs["rows"], step_runs["grads"], step_runs["stats"]
+    assert rows["torch_remat"] == rows["torch"]
+    for a, b in ((grads["torch"], grads["torch_remat"]), (stats["torch"], stats["torch_remat"])):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    a, b = (step_runs["tstate"][p].state_dict() for p in ("torch", "torch_remat"))
+    for part in ("model", "ema"):
+        assert all(torch.equal(a[part][k], b[part][k]) for k in a[part])
+
+
+def test_a_stage_two_reference_step_against_the_ports(step_runs):
+    """The reference's micro-step built as stage 2 builds it (``remat``)
+    from its state before `GRAD_STEP`, against the port's rematerialised
+    `GRAD_STEP`: loss parts at rtol 1e-3, gradients within 1% of each
+    leaf's largest, running statistics within 2e-4."""
+    assert jtr.TrainConfig().remat is ttr.TrainConfig().remat is True
+    want, port = step_runs["jax_remat"], "torch_remat"
+    got = step_runs["rows"][port][GRAD_STEP]
+    for k in PARTS:
+        assert want["parts"][k] > 0.1
+        np.testing.assert_allclose(got[k], want["parts"][k], rtol=1e-3, err_msg=k)
+    _hold_gradients(want["grads"], step_runs["grads"][port])
+    _hold_batchnorm(step_runs["stats"][port], want["batch_stats"], step_runs["init"])
 
 
 def test_train_state_runs_on_the_card_unless_the_caller_names_a_device():

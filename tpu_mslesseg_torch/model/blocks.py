@@ -27,6 +27,14 @@ ranks, ``core.mesh.DataAxis`` with ``global_batch``) the batch statistics
 are the whole batch's: each rank's per-channel means of ``x`` and ``x^2``
 are averaged over the axis, with a gradient, as the JAX package's BatchNorm
 reduces over a batch that XLA shards.
+
+`rematerialise` runs a block under ``torch.utils.checkpoint`` (the JAX
+package's ``nn.remat``): its activations are dropped after the forward and
+recomputed in the backward. The recompute normalises with the batch
+statistics over the axis the forward saw (the backward runs after the step
+has left `batch_norm_axis`) and leaves the running statistics alone, so
+they move once a forward and every result equals the stored step's, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -38,10 +46,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_mslesseg_torch.model import bn_act
 
 _BN_AXIS = contextvars.ContextVar("batch_norm_axis", default=None)
+# set while a rematerialised block recomputes its forward in the backward
+_RECOMPUTING = contextvars.ContextVar("batch_norm_recomputing", default=False)
 
 
 @contextlib.contextmanager
@@ -54,6 +65,33 @@ def batch_norm_axis(axis):
         yield
     finally:
         _BN_AXIS.reset(token)
+
+
+@contextlib.contextmanager
+def _recompute(axis):
+    """The backward's recompute of a rematerialised block: its BatchNorms
+    normalise over the forward's `axis` and leave the running statistics
+    alone."""
+    axis_token, flag_token = _BN_AXIS.set(axis), _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(flag_token)
+        _BN_AXIS.reset(axis_token)
+
+
+def _remat_contexts():
+    """``checkpoint``'s contexts, taken at the forward: none for the
+    forward, `_recompute` over the forward's axis for the recompute."""
+    return contextlib.nullcontext(), _recompute(_BN_AXIS.get())
+
+
+def rematerialise(block, x):
+    """``block(x)`` whose activations are recomputed in the backward instead
+    of stored. The blocks draw no random number, so the RNG state is not
+    saved for the recompute."""
+    return checkpoint(block, x, use_reentrant=False, context_fn=_remat_contexts,
+                      preserve_rng_state=False)
 
 
 class Conv(nn.Module):
@@ -83,7 +121,8 @@ class Conv(nn.Module):
 
     def _batch_norm_train(self, y):
         """Batch norm of float32 `y` with its batch statistics; moves the
-        running statistics by ``bn.momentum`` towards them (in place)."""
+        running statistics by ``bn.momentum`` towards them (in place), but
+        not in a rematerialised block's recompute."""
         bn = self.bn
         mean, sq = y.mean(dim=(0, 2, 3)), (y * y).mean(dim=(0, 2, 3))
         axis = _BN_AXIS.get()
@@ -91,10 +130,11 @@ class Conv(nn.Module):
             # every rank's batch is the same size: the mean of the means
             mean, sq = (axis.all_reduce_grad(torch.stack([mean, sq])) / axis.size).unbind(0)
         var = (sq - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            keep = 1.0 - bn.momentum
-            bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
-            bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                keep = 1.0 - bn.momentum
+                bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
+                bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
         mul = torch.rsqrt(var + bn.eps) * bn.weight
         return (y - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
 

@@ -10,6 +10,7 @@ contiguous.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass, field
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from tpu_mslesseg_torch.core.device import precision_of
+from tpu_mslesseg_torch.model import blocks
 from tpu_mslesseg_torch.model.blocks import (
     C2PSA, C3k2, CastConv2d, Concat, Conv, DWConv, Proto, SPPF, upsample2x,
 )
@@ -122,9 +124,13 @@ class YOLO11Seg(nn.Module):
     (``model/stem.py``), and ``model.0``/``model.1`` are skipped. In train
     mode (``model.train()``; the model is built in eval mode) every block
     normalises with batch statistics and updates its running ones
-    (``blocks.Conv``); the reference's ``remat`` has no counterpart here. A
-    float32 model convolves in full float32 on the card (``precision_of``:
-    TF32 off for the forward; the trainer scopes its backward alike).
+    (``blocks.Conv``). With ``remat``, a train-mode forward with autograd on
+    recomputes every ``C3k2``, the ``SPPF`` and the ``C2PSA`` in the
+    backward instead of storing their activations (``blocks.rematerialise``,
+    the reference's ``nn.remat`` over the same blocks): the same results,
+    less activation memory, more time. A float32 model convolves in full
+    float32 on the card (``precision_of``: TF32 off for the forward; the
+    trainer scopes its backward alike).
     Returns a dict of NHWC tensors:
       box:   list of 3 [B, Hi, Wi, 4*reg_max] DFL box distributions
       cls:   list of 3 [B, Hi, Wi, nc] class logits
@@ -132,10 +138,14 @@ class YOLO11Seg(nn.Module):
       proto: [B, H/4, W/4, nm] mask prototypes
     """
 
-    def __init__(self, cfg: YoloConfig, dtype=torch.float32):
+    # the layers the reference rematerialises: every C3k2, the SPPF, the C2PSA
+    REMAT_LAYERS = (2, 4, 6, 8, 9, 10, 13, 16, 19, 22)
+
+    def __init__(self, cfg: YoloConfig, dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         ch, n2, c3k = cfg.ch, cfg.rep(2), cfg.c3k_deep
         self.model = nn.Sequential(
             Conv(3, ch(64), 3, 2),                                    # 0 P1/2
@@ -170,6 +180,9 @@ class YOLO11Seg(nn.Module):
 
     def _forward(self, x, from_p2: bool):
         m = self.model
+        if self.remat and self.training and torch.is_grad_enabled():
+            m = [functools.partial(blocks.rematerialise, layer) if i in self.REMAT_LAYERS
+                 else layer for i, layer in enumerate(m)]
         if from_p2:
             y = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         else:
@@ -199,9 +212,9 @@ def cls_bias_prior(nc: int, stride: int, imgsz: int = 640) -> float:
     return math.log(5 / nc / (imgsz / stride) ** 2)
 
 
-def create_model(nc: int = 1, scale: str = "n", dtype=torch.float32):
+def create_model(nc: int = 1, scale: str = "n", dtype=torch.float32, remat: bool = False):
     cfg = YoloConfig(nc=nc, scale=scale)
-    return YOLO11Seg(cfg, dtype=dtype), cfg
+    return YOLO11Seg(cfg, dtype=dtype, remat=remat), cfg
 
 
 def create_model_from_env():

@@ -99,7 +99,8 @@ def ejecutar_flujo_train(config: ConfigTrain, limpiar=False, verbose=False,
     # the stage's default batch is -1, as the reference's
     cfg = train_cfg or TrainConfig(epochs=config.epochs, batch_size=-1,
                                    pretrained=resolver_pretrained())
-    model, _ = create_model(nc=1, scale=scale, dtype=_compute_dtype(cfg))
+    model, _ = create_model(nc=1, scale=scale, dtype=_compute_dtype(cfg),
+                            remat=cfg.remat)
     patients = listar_pacientes(config.dataset_entrada)
     _escribir_dataset_yaml(config.fold_dir, config.modelo, config.dataset_entrada, patients,
                            config.fold_test, config.modelo.k_folds)
@@ -207,7 +208,8 @@ def ejecutar_train_paralelo(modelo, epochs, train_cfg=None, scale="n", limpiar=F
     )
     cfg = train_cfg or TrainConfig(epochs=epochs, batch_size=-1,
                                    pretrained=resolver_pretrained())
-    model, _ = create_model(nc=1, scale=scale, dtype=_compute_dtype(cfg))
+    model, _ = create_model(nc=1, scale=scale, dtype=_compute_dtype(cfg),
+                            remat=cfg.remat)
     pacientes = listar_pacientes(config.dataset_entrada)
     for k in range(1, modelo.k_folds + 1):
         _escribir_dataset_yaml(config.output_dir / f"fold{k}", modelo, config.dataset_entrada,

@@ -77,6 +77,17 @@ def _cache_store(key: str, value: int) -> None:
         pass  # the cache saves probes; it is never a failure
 
 
+def cache_key(card: str, total: int, model, cfg, acfg, fraction: float, max_batch: int,
+              train_bytes: int) -> str:
+    """The cache entry of one resolution: the card and its memory, the model's
+    scale and rematerialisation (the probe measures the model as built, and
+    remat lowers its peak), the sizes that the peak grows with, the budget and
+    the dataset that stays on the card."""
+    return "|".join(str(v) for v in (
+        card, total, model.cfg.scale, model.remat, cfg.imgsz, acfg.max_inst, cfg.max_fg,
+        cfg.amp, fraction, max_batch, train_bytes))
+
+
 def probe_peak(model, cfg, train_set, acfg, batch_size: int, device) -> int:
     """Peak bytes one augmented micro-step at `batch_size` (augmentation,
     forward in train mode, loss, backward) allocates on `device` above what
@@ -120,9 +131,8 @@ def auto_batch_size(model, cfg, train_set, acfg, n_data: int = 1,
         logger.info(f"🤖 batch=-1 en la CPU: batch={DEFAULT_BATCH} x {n_data}.")
         return DEFAULT_BATCH * n_data
     free, total = torch.cuda.mem_get_info(dev)
-    key = "|".join(str(v) for v in (
-        torch.cuda.get_device_name(dev), total, model.cfg.scale, cfg.imgsz, acfg.max_inst,
-        cfg.max_fg, cfg.amp, fraction, max_batch, train_set.nbytes()))
+    key = cache_key(torch.cuda.get_device_name(dev), total, model, cfg, acfg, fraction,
+                    max_batch, train_set.nbytes())
     cached = _cache_load().get(key)
     if cached is not None:
         logger.info(f"🤖 batch=-1 (cacheado): {cached} por GPU x {n_data}.")

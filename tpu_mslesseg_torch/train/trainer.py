@@ -54,8 +54,9 @@ CLIP_NORM = 10.0
 @dataclass(frozen=True)
 class TrainConfig:
     """The train step's and the engine's options, with the reference's
-    defaults. The compute dtype is the model's own: ``amp`` asks the stage
-    for a bf16 model (``create_model(dtype=...)``)."""
+    defaults. The compute dtype and the rematerialisation are the model's
+    own: ``amp`` asks the stage for a bf16 model and ``remat`` for a
+    rematerialising one (``create_model(dtype=..., remat=...)``)."""
 
     epochs: int = 50
     batch_size: int = 32
@@ -86,6 +87,10 @@ class TrainConfig:
     amp: bool = True
     # an ultralytics .pt to warm-start from ("" = the seeded initialisation)
     pretrained: str = ""
+    # recompute the big blocks' activations in the backward instead of storing
+    # them (the same results, less memory, so a larger batch -1); consumed
+    # where stage 2 creates the model, as ``amp`` is
+    remat: bool = True
 
 
 def accumulate_steps(cfg: TrainConfig) -> int:
