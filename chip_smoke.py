@@ -265,6 +265,29 @@ pipeline's log lines):
    empty cache) for scale n and for the widest of x and m whose probes fit,
    with the probes' peaks. No hand-written kernel launches (``train_remat``
    in ``launches_by_path``).
+20. multimodal (run after phase 18): ``ConsensusPredictor.lote`` on three
+   seeded modalities a patient (T1, T2, FLAIR; the CLI's ``--modalidad T1
+   T2 FLAIR``) for phase 2's 4 patients x 3 planes x 50 slices, CLAHE,
+   per-plane weights, the fused stem, YOLO11n-seg bf16 at 640: each plane's
+   forward holds 600 images. Prints each kernel's launches (the union, the
+   stem and NMS 3 of 600 images, the CLAHE kernels 9 of 200, the epilogue 3
+   forwards' worth) and holds each against its plain version on the
+   dispatch's own inputs by phase 8's rules (CLAHE's kernels and NMS bit for
+   bit, the epilogue within one ulp as it runs, the union and the stem within
+   their bf16 bounds); times the dispatch and reads its peak memory in turns
+   with the same predictor on FLAIR alone (phase 7's shapes); then in
+   float32 (TF32 off) holds each plane's three-modality volume against the
+   OR of the three one-modality volumes: the voxels that differ, and a Dice
+   of at least 0.99 (cuDNN picks its algorithm by batch, C6).
+21. cli_trace: phase 10's command (``--completo``, served by ``rapido``)
+   for the three planes on two fresh copies of phase 9's inputs, untraced,
+   then with ``TPU_MSLESSEG_TRACE_DIR`` set: a ``cli_trace`` line a region
+   (its traces, one a run; the card's busy share of its span; its five
+   longest device operations; the hand-written kernels in it by name, all
+   six in ``rapido_fold<k>`` and CLAHE's two in ``extraer_dataset`` or it
+   fails; its wall seconds traced and untraced), then a summary: the
+   profiler's first start (timed apart, before both runs) and the kernels
+   counted in the traces beside the launch counters.
 
 An ``enhancement`` line after phase 2 compares ``enhance_batch`` on the card
 with the same call on the CPU for no enhancement, HE, GC, CLAHE and LT on
@@ -276,7 +299,8 @@ Then the kernel summary line (per CLAHE dispatch: kernel and plain ms,
 the CLAHE kernels' background-heavy ms, the bound and what bounds it;
 ``launches`` counts phase 6's fold, which those times belong to,
 ``launches_by_path`` each driven path's (``train_paralelo`` phase 16's,
-``demo`` and ``capacidad`` phase 18's, ``train_remat`` phase 19's),
+``demo`` and ``capacidad`` phase 18's, ``train_remat`` phase 19's,
+``lote_multimodal`` phase 20's, ``cli_traced`` phase 21's traced run),
 and ``cli_chain`` holds phase 9's
 launches with the kernel's and the plain version's ms and the bound for one
 patient's three launches of 50 images; the stem's ``scales`` holds phase
@@ -297,6 +321,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import gc
+import gzip
 import importlib.util
 import json
 import os
@@ -308,6 +333,7 @@ import time
 import types
 import zlib
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -448,15 +474,16 @@ def plane_work(geometry, torch, vol, gt, n: int):
     return work
 
 
-def synthetic_batch(geometry, torch):
+def synthetic_batch(geometry, torch, volume=patient_volume):
     """One serving group: slices {plane: [P, 50, h, w]}, indices {plane:
     [P, 50]} (the short patient padded with blank slices and the index
-    max(VOL_SHAPE)) and ground truths [P, X, Y, Z]."""
+    max(VOL_SHAPE)) and ground truths [P, X, Y, Z], of the patients
+    `volume` makes."""
     slices = {p: [] for p in PLANES}
     idx = {p: [] for p in PLANES}
     gts = []
     for pid in PATIENTS:
-        vol, gt = patient_volume(pid)
+        vol, gt = volume(pid)
         n = N_SHORT if pid == PATIENTS[-1] else N_PER_PLANE
         work = plane_work(geometry, torch, vol, gt, n)
         for p in PLANES:
@@ -957,10 +984,7 @@ def write_cli_inputs(root: Path, P) -> dict:
         P.nifti.save(vol.astype(np.float32), np.eye(4), ds / pid / "T1" / f"{pid}_T1_FLAIR.nii.gz")
         P.nifti.save(gt.astype(np.uint8), np.eye(4), ds / pid / "T1" / f"{pid}_T1_MASK.nii.gz")
     model, _ = P.create_model(nc=1, scale="n")
-    for k, p in enumerate(PLANES):
-        sd = P.init_variables(model, seed=20 + k)
-        for i in range(len(P.STRIDES)):  # no class prior: NMS keeps detections
-            sd[f"model.23.cv3.{i}.2.bias"].zero_()
+    for p, sd in served_weights(P, model, 20).items():
         for fold in sorted(set(CLI_PATIENTS.values())):
             cfg = P.ConfigTrain(modelo=modelo[p], epochs=EPOCHS, fold_test=fold, root=root)
             P.save_checkpoint(cfg.best_ckpt, sd)
@@ -2796,6 +2820,344 @@ def phase_bn_act(torch, P, smodel, x, dev, card) -> dict:
     return checks
 
 
+# ---- phase 20: multimodal serving (--modalidad T1 T2 FLAIR) ---------------
+MODALITIES = ("T1", "T2", "FLAIR")
+# each modality's lesion box against its background (FLAIR: phase 2's volume)
+MODALITY_LESION = {"T1": -300.0, "T2": 400.0}
+MULTIMODAL_SEED = 30  # the per-plane weights' first seed
+MULTIMODAL_TIMED = 2  # timed dispatches a block; blocks FLAIR, three, three, FLAIR
+EPILOGUE_CHUNK = 64  # images of a launch compared at a time
+
+
+def modality_volume(pid: str, modality: str):
+    """Patient `pid`'s `modality`: FLAIR is phase 2's volume; T1 and T2
+    have seeds of their own, the lesion box darker (T1) or brighter (T2)."""
+    vol, gt = patient_volume(pid)
+    if modality in MODALITY_LESION:
+        vol = patient_volume(f"{pid}/{modality}")[0] + MODALITY_LESION[modality] * gt
+    return vol, gt
+
+
+def served_weights(P, model, seed: int) -> dict:
+    """{plane: seeded state_dict}, one seed a plane, no class prior (NMS
+    keeps detections)."""
+    out = {}
+    for k, p in enumerate(PLANES):
+        sd = P.init_variables(model, seed=seed + k)
+        for i in range(len(P.STRIDES)):
+            sd[f"model.23.cv3.{i}.2.bias"].zero_()
+        out[p] = sd
+    return out
+
+
+@contextlib.contextmanager
+def recording_stem(P, calls):
+    """For the duration, each fused stem call appends its (model, weights,
+    input) to `calls`."""
+    real = P.stem.stem_apply
+
+    def record(model, weights, x):
+        calls.append((model, weights, x))
+        return real(model, weights, x)
+
+    with switched(P.stem, "stem_apply", record):
+        yield
+
+
+@contextlib.contextmanager
+def checking_epilogues(torch, P, errs):
+    """For the duration, each launch of the Conv blocks' fused epilogue is
+    held against its plain version on its own input as it runs (the plain
+    result taken first: the kernel may write in place), `EPILOGUE_CHUNK`
+    images at a time: the elements that differ, the largest difference in
+    ulps of the stored type and the launches accumulate into `errs`."""
+    real = P.bn_act.bn_act
+
+    def check(y, bn, act, out=None):
+        want = P.bn_act.bn_act_ref(y, bn, act)
+        got = real(y, bn, act, out)
+        for i in range(0, got.shape[0], EPILOGUE_CHUNK):
+            g, w = got[i:i + EPILOGUE_CHUNK], want[i:i + EPILOGUE_CHUNK]
+            errs["elements_differing"] += int((g != w).sum())
+            errs["max_abs_err"] = max(errs["max_abs_err"], float((g.float() - w.float()).abs().max()))
+            errs["max_ulp"] = max(errs["max_ulp"], float(ulps(torch, g, w).max()))
+        errs["elements"] += got.numel()
+        errs["launches"] += 1
+        return got
+
+    with switched(P.bn_act, "bn_act", check):
+        yield
+
+
+def phase_multimodal(torch, P, counters, dev, card, flair_lote_s) -> dict:
+    """Phase 20: ``ConsensusPredictor.lote`` on three modalities a patient
+    (T1, T2, FLAIR, ``modality_volume``) for phase 2's 4 patients x 3 planes
+    x 50 slices, under CLAHE, with per-plane weights and the fused stem
+    (YOLO11n-seg, bf16, 640): each plane's forward holds its 600 images.
+    The launches of each kernel; each kernel against its plain version on
+    this dispatch's own inputs, by phase 8's rules (the CLAHE kernels and
+    NMS bit for bit, the epilogue within one ulp with the elements that
+    differ counted, the union and the stem within their bf16 bounds); the
+    dispatch's seconds and peak memory in turns with the same predictor on
+    FLAIR alone (phase 7's shapes); then, in float32 (``precision_of``: TF32
+    off), each plane's three-modality volume against the OR of the three
+    one-modality volumes, the voxels that differ and the Dice (at least
+    `MIN_DICE`)."""
+    slices, idx, gts = {p: {} for p in PLANES}, None, None
+    for m in MODALITIES:
+        sl, idx, gts = synthetic_batch(P.geometry, torch, lambda pid, m=m: modality_volume(pid, m))
+        for p in PLANES:
+            slices[p][m] = sl[p]
+    per_plane = len(MODALITIES) * len(PATIENTS) * N_PER_PLANE
+    smodel, _, imgsz = P.create_model_from_env()
+    variables = served_weights(P, smodel, MULTIMODAL_SEED)
+    union = Recorder(P.mu.mask_union_logits_batch, keep_calls=True)
+    kw = dict(mejora="CLAHE", imgsz=imgsz, umbral=2, per_plane_counts=True, device=dev)
+    cp = P.ConsensusPredictor(smodel, variables, VOL_SHAPE, mask_union=union, **kw)
+    if cp._stem_w is None:
+        raise AssertionError("the multimodal predictor did not take the fused stem")
+
+    # the dispatch, its launches and every kernel's inputs
+    nms_calls, stem_calls = [], []
+    epi = {"max_abs_err": 0.0, "max_ulp": 0.0, "elements_differing": 0, "elements": 0,
+           "launches": 0}
+    zero_launches(counters)
+    with recording_nms(P, nms_calls), recording_stem(P, stem_calls), \
+            checking_epilogues(torch, P, epi):
+        counts, cons, vols = cp.lote(slices, idx, gts)
+    torch.cuda.synchronize()
+    launches = read_launches(counters)
+    n_planes, n_mods = len(PLANES), len(MODALITIES)
+    want = {"mask_union": n_planes, "stem": n_planes, "nms": n_planes,
+            "clahe_tile_lut": n_planes * n_mods, "clahe_blend": n_planes * n_mods}
+    if any(launches[k] != n for k, n in want.items()) or launches["bn_act"] != epi["launches"] \
+            or launches["bn_act"] < n_planes:
+        raise AssertionError(f"multimodal dispatch launches {launches}, want {want} and the "
+                             f"epilogue's {epi['launches']}")
+    images = {"mask_union": [int(c[0].shape[0]) for c in union.calls],
+              "stem": [int(c[2].shape[0]) for c in stem_calls],
+              "nms": [int(c["args"][1].shape[0]) for c in nms_calls]}
+    if any(v != [per_plane] * n_planes for v in images.values()):
+        raise AssertionError(f"images a launch {images}, not {per_plane} a plane")
+    kept_per_slice = float(union.kept) / max(union.images, 1)
+    if not kept_per_slice > 0:
+        raise AssertionError("NMS kept no detection in the multimodal dispatch")
+    n_vox = int(np.prod(VOL_SHAPE))
+    for key, c in counts.items():
+        if not (bool(torch.isfinite(c).all()) and bool((c.sum(1) == n_vox).all())):
+            raise AssertionError(f"multimodal counts of {key} do not cover the volume")
+    if not bool(cons.any()):
+        raise AssertionError("the multimodal consensus is empty")
+    if epi["max_ulp"] > 1.0:
+        raise AssertionError(f"the fused BN + SiLU differs by more than one ulp: {epi}")
+
+    # each kernel against its plain version on those inputs
+    checked = {"bn_act": epi}
+    checked["mask_union"] = [check_union(torch, P.mu, c, P.mu.mask_union_logits_batch(*c),
+                                         P.mu.mask_union_logits_ref(*c)) for c in union.calls]
+    checked["stem"] = [stem_errors(torch, P.stem, m, w, x, P.stem.stem_apply(m, w, x),
+                                   P.stem.stem_reference(m, w, x)) for m, w, x in stem_calls]
+    checked["nms"] = [nms_against_plain(torch, P, c["args"]) for c in nms_calls]
+    del union.calls[:], stem_calls[:], nms_calls[:]
+    cp.mask_union = P.mu.mask_union_logits_batch
+    bwd = torch.from_numpy(P.enhance._LAB_BWD).to(dev)
+    fwd = torch.from_numpy(P.enhance._LAB_FWD).to(dev)
+    clahe_px = {"tile_lut_elements_differing": 0, "blend_px_differing": 0,
+                "enhancement_px_differing": 0, "launches_checked": 0}
+    for p in PLANES:
+        for m in MODALITIES:
+            raw = torch.as_tensor(slices[p][m], device=dev)
+            raw = raw.reshape((-1,) + raw.shape[2:])
+            l_img = fwd[P.enhance.normalize_to_uint8(raw).long()]
+            luts, luts_ref = P.clahe.clahe_tile_luts(l_img), P.clahe.clahe_tile_luts_ref(l_img)
+            got, ref = P.clahe.clahe_blend(l_img, luts, bwd), P.clahe.clahe_blend_ref(l_img, luts_ref, bwd)
+            enh = P.enhance.enhance_for_model(raw, "CLAHE")
+            with plain_clahe(P.clahe):
+                enh_ref = P.enhance.enhance_for_model(raw, "CLAHE")
+            clahe_px["tile_lut_elements_differing"] += int((luts != luts_ref).sum())
+            clahe_px["blend_px_differing"] += int((got != ref).sum())
+            clahe_px["enhancement_px_differing"] += int((enh != enh_ref).sum())
+            clahe_px["launches_checked"] += 1
+    if any(v for k, v in clahe_px.items() if k != "launches_checked"):
+        raise AssertionError(f"CLAHE differs from its plain versions in the multimodal "
+                             f"dispatch: {clahe_px}")
+    checked["clahe"] = {**clahe_px, "images_per_launch": len(PATIENTS) * N_PER_PLANE}
+    torch.cuda.empty_cache()
+
+    # seconds and peak memory, in turns with FLAIR alone (phase 7's shapes)
+    inputs = {"flair_only": {p: slices[p]["FLAIR"] for p in PLANES}, "multimodal": slices}
+    secs, peak = {k: [] for k in inputs}, {}
+    for k, sl in inputs.items():  # a warm-up each, then the peak of one dispatch
+        cp.lote(sl, idx, gts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        cp.lote(sl, idx, gts)
+        torch.cuda.synchronize()
+        peak[k] = {"peak_bytes_above_held": int(torch.cuda.max_memory_allocated(dev)) - base,
+                   "held_bytes": base}
+    for k in ("flair_only", "multimodal", "multimodal", "flair_only"):
+        for _ in range(MULTIMODAL_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp.lote(inputs[k], idx, gts)
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t0)
+    del cp, counts, cons, vols
+    torch.cuda.empty_cache()
+
+    # float32: the three modalities in one forward against the OR of each alone
+    model32, _ = P.create_model(nc=1, scale="n", dtype=torch.float32)
+    cp32 = P.ConsensusPredictor(model32, variables, VOL_SHAPE, **kw)
+    multi = cp32.lote(slices, idx, gts)[2]
+    ored = None
+    for m in MODALITIES:
+        single = cp32.lote({p: slices[p][m] for p in PLANES}, idx, gts)[2]
+        ored = single if ored is None else {p: torch.maximum(ored[p], single[p]) for p in PLANES}
+    torch.cuda.synchronize()
+    f32 = {"voxels_differing": {p: int((multi[p] != ored[p]).sum()) for p in PLANES},
+           "dice": {p: dice(multi[p], ored[p]) for p in PLANES},
+           "voxels_set": {p: int((multi[p] > 0).sum()) for p in PLANES}, "min_dice": MIN_DICE}
+    del cp32, multi, ored
+    torch.cuda.empty_cache()
+
+    emit({"phase": "multimodal", "modalities": list(MODALITIES), "patients": len(PATIENTS),
+          "slices_per_plane": N_PER_PLANE, "images_per_plane": per_plane, "mejora": "CLAHE",
+          "dtype": str(smodel.dtype).removeprefix("torch."), "launches": launches,
+          "images_per_launch": images, "kept_per_slice": kept_per_slice,
+          "kernels_vs_plain": checked, "f32_multimodal_vs_or_of_each": f32,
+          "informational": {"dispatch_s": secs,
+                            "dispatch_s_median": {k: float(np.median(v)) for k, v in secs.items()},
+                            "peak_memory": peak, "phase7_flair_lote_s": flair_lote_s, **card}})
+    if any(n == 0 for n in f32["voxels_set"].values()) or \
+            min(f32["dice"].values()) < MIN_DICE:
+        raise AssertionError(f"float32 multimodal vs the OR of each modality: {f32}")
+    return {"launches": launches,
+            "max_abs_err": {"mask_union": max(e["max_abs_err"] for e in checked["mask_union"]),
+                            "stem": max(e["max_abs_err"] for e in checked["stem"]),
+                            "bn_act": epi["max_abs_err"]}}
+
+
+# ---- phase 21: the CLI's regions traced (TPU_MSLESSEG_TRACE_DIR) ----------
+# each hand-written kernel by the names its launches take in a trace
+TRACE_KERNELS = {
+    "mask_union": ("mask_union_fma_kernel", "mask_union_mma_kernel"),
+    "clahe_tile_lut": ("clahe_tile_lut_kernel",), "clahe_blend": ("clahe_blend_kernel",),
+    "stem": ("stem_mma_kernel", "stem_bf16_wide_kernel", "stem_f32_wide_kernel"),
+    "bn_act": ("bn_act_kernel",), "nms": ("nms_kernel",),
+}
+# the kernels a region must show, by the region's name without its fold
+TRACE_REQUIRED = {"extraer_dataset": ("clahe_tile_lut", "clahe_blend"), "rapido_fold": KERNELS}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_TOP = 5
+
+
+def read_region_traces(region_dir: Path, region: str) -> dict:
+    """The traces `stage_timer` wrote for `region` (one a run of it): the
+    region's span, the device's busy time inside it (kernels, copies and
+    fills, overlaps merged), the longest device operations by name and the
+    launches of each hand-written kernel by its names."""
+    files = sorted(region_dir.glob("*.pt.trace.json.gz"))
+    span_us = busy_us = 0.0
+    by_name, found, n_dev = {}, dict.fromkeys(TRACE_KERNELS, 0), 0
+    for f in files:
+        with gzip.open(f, "rt") as fh:
+            events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+        spans = [e for e in events if e.get("cat") == "user_annotation"
+                 and e["name"] == f"stage_timer.{region}"]
+        if len(spans) != 1:
+            raise AssertionError(f"{f}: {len(spans)} spans of the region")
+        t0 = float(spans[0]["ts"])
+        t1 = t0 + float(spans[0]["dur"])
+        dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+        n_dev += len(dev)
+        span_us += t1 - t0
+        merged = []
+        for lo, hi in sorted((max(float(e["ts"]), t0), min(float(e["ts"]) + float(e["dur"]), t1))
+                             for e in dev):
+            if hi <= lo:
+                continue
+            if merged and lo <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], hi)
+            else:
+                merged.append([lo, hi])
+        busy_us += sum(hi - lo for lo, hi in merged)
+        for e in dev:
+            ms, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + float(e["dur"]) / 1e3, n + 1)
+            if e["cat"] == "kernel":
+                for k, names in TRACE_KERNELS.items():
+                    found[k] += any(name in e["name"] for name in names)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
+    return {"traces": len(files), "trace_bytes": sum(f.stat().st_size for f in files),
+            "span_s": span_us / 1e6, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / span_us if span_us else None,
+            "device_events": n_dev,
+            "top_device_ops": [{"name": k[:120], "ms": ms, "calls": n} for k, (ms, n) in top],
+            "kernels": {k: n for k, n in found.items() if n}}
+
+
+def phase_cli_trace(torch, P, root: Path, counters, card) -> dict:
+    """Phase 21: phase 10's command (``--completo``: stage 1, ``rapido``,
+    the rest) for the three planes on two fresh copies of phase 9's inputs,
+    the first untraced, the second with ``TPU_MSLESSEG_TRACE_DIR`` set:
+    every ``stage_timer`` region writes its trace under ``<dir>/<region>/``,
+    one a run of it. For each region: its traces, the device's busy share
+    of its span, its five longest device operations, the hand-written
+    kernels in it by name (``rapido_fold<k>`` must show all six,
+    ``extraer_dataset`` CLAHE's two), and its wall seconds traced and
+    untraced. The profiler's first start, which sets up the device tracing,
+    is timed apart before both runs."""
+    src = root / "inputs"
+    write_cli_inputs(src, P)
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    profiler_init_s = time.perf_counter() - t0
+    traces = root / "traces"
+    runs = {}
+    for mode in ("untraced", "traced"):
+        shutil.copytree(src, root / mode)
+        P.profiling.reset_timings()
+        zero_launches(counters)
+        env = mock.patch.dict(os.environ, {P.profiling.TRACE_ENV: str(traces)}) \
+            if mode == "traced" else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with env:
+            for p in PLANES:
+                run_cli(P.orch, root / mode, p)
+        torch.cuda.synchronize()
+        runs[mode] = {"s": time.perf_counter() - t0, "timings": P.profiling.timings_summary(),
+                      "launches": read_launches(counters)}
+        P.logging_setup.configure_logging(log_file=None)
+    timed = runs["traced"]["timings"]
+    regions = sorted(d.name for d in traces.iterdir())
+    if regions != sorted(timed) or sorted(runs["untraced"]["timings"]) != regions:
+        raise AssertionError(f"traced regions {regions}, timed {sorted(timed)}")
+    totals = dict.fromkeys(TRACE_KERNELS, 0)
+    for region in regions:
+        read = read_region_traces(traces / region, region)
+        if read["traces"] != timed[region]["calls"]:
+            raise AssertionError(f"{region}: {read['traces']} traces for "
+                                 f"{timed[region]['calls']} runs")
+        need = TRACE_REQUIRED.get(region.rstrip("0123456789"), ())
+        missing = [k for k in need if k not in read["kernels"]]
+        if missing:
+            raise AssertionError(f"{region}: no {missing} in its trace ({read['kernels']})")
+        for k, n in read["kernels"].items():
+            totals[k] += n
+        emit({"phase": "cli_trace", "region": region, **read,
+              "wall_s_untraced": runs["untraced"]["timings"][region]["total_s"],
+              "wall_s_traced": timed[region]["total_s"], "card": card["nvidia_smi"]})
+    emit({"phase": "cli_trace_summary", "regions": len(regions),
+          "profiler_init_s": profiler_init_s,
+          "three_planes_s": {k: v["s"] for k, v in runs.items()},
+          "launches": {k: v["launches"] for k, v in runs.items()},
+          "kernels_in_the_traces": totals, **card})
+    return {"launches": runs["traced"]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -3501,6 +3863,17 @@ def main() -> int:
         demo = phase_demo(torch, P, Path(tmp), counters, dev, card, global_rows)
     torch.cuda.empty_cache()
 
+    # ---- phase 20: multimodal serving, 600 images a plane ------------------
+    multimodal = phase_multimodal(torch, P, counters, dev, card, lote_s[0])
+    for name, err in multimodal["max_abs_err"].items():
+        max_err[name] = max(max_err[name], err)
+    torch.cuda.empty_cache()
+
+    # ---- phase 21: the CLI's regions traced --------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        traced = phase_cli_trace(torch, P, Path(tmp), counters, card)
+    torch.cuda.empty_cache()
+
     by_path = {"lote_gc": gc_launches, "rapido_fold": fold_launches,
                "cli_chain": chain["launches"], "cli_default": default["launches"],
                "lote_scale_s": scale_s_launches, "lote_scale_m_f32": scale_m_launches,
@@ -3508,7 +3881,8 @@ def main() -> int:
                "train": train_launches, "train_remat": remat_launches,
                "train_cli_then_serve": train_cli["launches"],
                "train_paralelo": train_par["launches"], "demo": demo["launches"],
-               "capacidad": demo["capacity_launches"]}
+               "capacidad": demo["capacity_launches"], "lote_multimodal": multimodal["launches"],
+               "cli_traced": traced["launches"]}
 
     for name in KERNELS:
         max_err[name] = max(max_err[name], chain["kernels"][name]["max_abs_err"])

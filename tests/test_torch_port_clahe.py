@@ -24,6 +24,7 @@ from tpu_mslesseg.preproc import clahe_pallas as jcp
 from tpu_mslesseg.preproc import enhance as jenh
 from tpu_mslesseg_torch.preproc import clahe as tcl
 from tpu_mslesseg_torch.preproc import enhance as tenh
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDENS = Path(__file__).parent / "goldens" / "enhance_goldens.npz"
 # (h, w) of the three plane slices of a 182x218x182 volume

@@ -33,6 +33,8 @@ from tpu_mslesseg_torch.infer.predictor import SlicePredictor as TSlicePredictor
 from tpu_mslesseg_torch.model.bridge import state_dict_from_reference
 from tpu_mslesseg_torch.model.yolo11 import create_model as t_create
 from tpu_mslesseg_torch.preproc import enhance as tenh
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 IMGSZ = 64
 VOL_SHAPE = (24, 28, 24)
@@ -298,3 +300,43 @@ def _check_padded_lote(case, mejora, weights):
         np.testing.assert_array_equal(tout[2][p][1].numpy(), short[2][p].numpy())
         np.testing.assert_array_equal(tout[0][p][1].numpy(), short[0][p].numpy())
     np.testing.assert_array_equal(tout[1][1].numpy(), short[1].numpy())
+
+
+def test_consensus_lote_multimodal_matches_jax(case):
+    """The CLI's multimodal serving (``--modalidad T1 FLAIR``): each plane's
+    forward holds both modalities' slices, and a voxel is set where either
+    modality's mask is. Two patients, the second padded, GC, one set of
+    weights (one forward of every plane's and modality's slices). A voxel
+    may differ only where one modality's JAX logit lies within 1e-3 of the
+    threshold."""
+    a, b = case["pats"]
+    ids = case["ids"]
+    mods = {"T1": lambda s: -s + 2000.0, "FLAIR": lambda s: s}  # T1: the lesion dark
+    stack = lambda p, f: np.stack(
+        [f(a[p]), np.concatenate([f(b[p][:-1]), np.zeros_like(b[p][:1])])])
+    slices = {p: {m: stack(p, f) for m, f in mods.items()} for p in PLANES}
+    idx = {p: np.stack([ids, np.concatenate([ids[:-1], [OOB]])]) for p in PLANES}
+    gts = np.stack([case["gt"], case["gt"]])
+    kw = dict(mejora="GC", imgsz=IMGSZ, umbral=2, per_plane_counts=True)
+    jcp = JConsensus(case["jmodel"], case["jvars"]["shared"], VOL_SHAPE, **kw)
+    tcp = TConsensus(case["tmodel"], case["tvars"]["shared"], VOL_SHAPE, device="cpu", **kw)
+    jout = jcp.lote({p: {m: jnp.asarray(v) for m, v in s.items()} for p, s in slices.items()},
+                    idx, jnp.asarray(gts))
+    tout = tcp.lote(slices, idx, gts)
+    for p in PLANES:
+        assert tout[2][p].shape == (2,) + VOL_SHAPE
+
+    def nearest_logits():
+        """Per voxel, the modality's JAX logit nearest the threshold."""
+        per_mod = [_jax_logit_volumes(
+            jcp, {p: s[m].reshape((-1,) + s[m].shape[2:]) for p, s in slices.items()}, idx, 2)
+            for m in mods]
+        return {p: np.where(np.abs(per_mod[0][p]) <= np.abs(per_mod[1][p]),
+                            per_mod[0][p], per_mod[1][p]) for p in PLANES}
+
+    _assert_matches_jax(jout, tout, nearest_logits, gts)
+    # and the port's own single-modality calls, OR'd
+    singles = {m: tcp.lote({p: s[m] for p, s in slices.items()}, idx, gts)[2] for m in mods}
+    for p in PLANES:
+        assert bool(tout[2][p].any())
+        assert torch.equal(tout[2][p], torch.maximum(singles["T1"][p], singles["FLAIR"][p]))

@@ -49,23 +49,13 @@ from tpu_mslesseg_torch.model.yolo11 import create_model, init_variables
 from tpu_mslesseg_torch.tools.train_batches import synthetic_batch
 from tpu_mslesseg_torch.train import augment, checkpoint, fold_parallel, trainer
 from tpu_mslesseg_torch.train.trainer import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 RANK_TIMEOUT = 240  # seconds a spawned rank may take
 S, B = 64, 4
 PARTS = ("loss", "box", "seg", "cls", "dfl")
 NOISE_LEAVES = ("model.10.m.0.attn.pe.bn.bias", "model.10.m.0.attn.proj.bn.bias",
                 "model.10.m.0.ffn.1.bn.bias")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread here: the suite runs several test processes at
-    once, and each torch process's own thread pool would contend for the
-    same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

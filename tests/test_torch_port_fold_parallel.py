@@ -36,16 +36,7 @@ from tpu_mslesseg_torch.pipeline.paciente import calcular_fold
 from tpu_mslesseg_torch.train import augment as taug
 from tpu_mslesseg_torch.train import fold_parallel as tfp
 from tpu_mslesseg_torch.train.trainer import TrainConfig as TConfig
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread here: the suite runs several test processes at
-    once, and each torch process's own thread pool would contend for the
-    same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 PLAN_CASES = [(8, 5), (8, 4), (4, 5), (2, 5), (1, 5), (8, 8), (16, 5), (1, 1), (3, 2), (6, 4),

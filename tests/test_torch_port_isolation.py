@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import tpu_mslesseg_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

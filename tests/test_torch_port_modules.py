@@ -32,6 +32,7 @@ from tpu_mslesseg_torch.infer import predictor as tpred
 from tpu_mslesseg_torch.infer import reconstruct as trec
 from tpu_mslesseg_torch.model import yolo11 as tyolo
 from tpu_mslesseg_torch.preproc import enhance as tenh
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOL_SHAPE = (24, 28, 20)
 GOLDENS = Path(__file__).parent / "goldens" / "enhance_goldens.npz"

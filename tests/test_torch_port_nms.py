@@ -18,6 +18,7 @@ import torch
 from tpu_mslesseg.infer import nms as jnms
 from tpu_mslesseg_torch.infer import nms
 from tpu_mslesseg_torch.tools import nms_cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _case(name):

@@ -18,6 +18,7 @@ import torch
 from tpu_mslesseg_torch.model.yolo11 import create_model
 from tpu_mslesseg_torch.tools.train_batches import synthetic_batch
 from tpu_mslesseg_torch.train import trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
 

@@ -54,6 +54,7 @@ from tpu_mslesseg_torch.pipeline.modelo import Modelo as TModelo
 from tpu_mslesseg_torch.pipeline.stages import eval as teval
 from tpu_mslesseg_torch.pipeline.stages import generar_predicciones as tgen
 from tpu_mslesseg_torch.train import checkpoint as tckpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (24, 28, 24)
 PLANES = ("axial", "coronal", "sagital")

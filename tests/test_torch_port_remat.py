@@ -36,23 +36,13 @@ from tpu_mslesseg_torch.model.yolo11 import create_model, init_variables
 from tpu_mslesseg_torch.tools.train_batches import synthetic_batch
 from tpu_mslesseg_torch.train import autobatch, augment, trainer
 from tpu_mslesseg_torch.train.trainer import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, B, STEPS, APPLY_AT = 64, 2, 3, 2
 CFG = dict(epochs=1, batch_size=B, nbs=3 * B, warmup_epochs=0.0, imgsz=S, max_fg=8)
 PARTS = ("loss", "box", "seg", "cls", "dfl")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_TYPES = (C3k2, SPPF, C2PSA)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread here: the suite runs several test processes at
-    once, and each torch process's own thread pool would contend for the
-    same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(seed):

@@ -70,6 +70,7 @@ from tpu_mslesseg_torch.pipeline.stages import setup as tsetup
 from tpu_mslesseg_torch.preproc import enhance as tenh
 from tpu_mslesseg_torch.preproc import slices as tslices
 from tpu_mslesseg_torch.train import checkpoint as tckpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (24, 28, 24)
 PLANES = ("axial", "coronal", "sagital")

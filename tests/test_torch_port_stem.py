@@ -28,6 +28,7 @@ from tpu_mslesseg_torch.model import stem as tst
 from tpu_mslesseg_torch.model.bridge import state_dict_from_reference
 from tpu_mslesseg_torch.model.yolo11 import create_model as t_create
 from tpu_mslesseg_torch.model.yolo11 import fold_gray_stem as t_fold
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

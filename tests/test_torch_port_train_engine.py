@@ -50,6 +50,7 @@ from tpu_mslesseg_torch.train import engine as tengine
 from tpu_mslesseg_torch.train import trainer as ttrainer
 from tpu_mslesseg_torch.train import validate as tval
 from tpu_mslesseg_torch.train.trainer import TrainConfig as TConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 OPTS = dict(epochs=4, batch_size=8, imgsz=64, max_fg=8, close_mosaic=2, save_period=1,
             patience=1, plots=False, amp=False)

@@ -109,6 +109,67 @@ def test_bce_logits_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
 
 
+_BCE_IN_A_CHILD = """
+import ctypes
+import os
+import sys
+import numpy as np
+import torch
+from tpu_mslesseg_torch.train import losses
+n = int(sys.argv[1])
+torch.set_num_threads(n)
+rng = np.random.default_rng(2)
+logits = (rng.normal(0, 4, (8, 525, 1)) * rng.choice([1, 10], (8, 525, 1))).astype(np.float32)
+targets = rng.uniform(0, 1, logits.shape).astype(np.float32) * (rng.random(logits.shape) < 0.1)
+x, t = torch.from_numpy(logits).bfloat16(), torch.from_numpy(targets)
+if sys.argv[2] == "cycled":
+    # one_torch_thread's 1 and back, another count and back, MKL's own count and back
+    for k in (1, max(n // 2, 1)):
+        torch.set_num_threads(k)
+        losses.bce_logits(x, t)
+        torch.set_num_threads(n)
+    mkl = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib", "libtorch_cpu.so"))
+    if hasattr(mkl, "mkl_set_num_threads"):
+        was = mkl.mkl_get_max_threads()
+        mkl.mkl_set_num_threads(ctypes.c_int(1))
+        losses.bce_logits(x, t)
+        mkl.mkl_set_num_threads(ctypes.c_int(was))
+sys.stdout.buffer.write(losses.bce_logits(x, t).numpy().tobytes())
+"""
+
+
+def test_bce_logits_bits_after_thread_count_changes_match_a_fresh_process():
+    """A process whose thread counts went where the port's test files take
+    them (``one_torch_thread``'s 1 and back, another count and back, MKL's
+    own count and back) gives a fresh process's ``bce_logits`` bits at eight
+    threads (4,200 elements split three ways), and both give the reference's
+    values at the parity test's tolerance. One run of the whole suite failed
+    ``test_bce_logits_matches_reference`` (302 of 4,200 elements up to
+    1.3e-4 off) and its cause is not found: this holds that the thread
+    counts are not it. The comparison runs in two child processes: in a
+    worker of the whole suite the bits differed from a fresh process's once
+    in three runs, from some other state of that worker (ROADMAP C12)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def child(mode):
+        out = subprocess.run([sys.executable, "-c", _BCE_IN_A_CHILD, "8", mode],
+                             capture_output=True, check=True, timeout=120, cwd=root,
+                             env={**os.environ, "PYTHONPATH": root}).stdout
+        return np.frombuffer(out, np.float32).reshape(8, 525, 1)
+
+    cycled, fresh = child("cycled"), child("fresh")
+    assert np.array_equal(cycled.view(np.uint32), fresh.view(np.uint32))
+    rng = np.random.default_rng(2)
+    logits = (rng.normal(0, 4, (8, 525, 1)) * rng.choice([1, 10], (8, 525, 1))).astype(np.float32)
+    targets = rng.uniform(0, 1, logits.shape).astype(np.float32) * (rng.random(logits.shape) < 0.1)
+    want = np.asarray(jls.bce_logits(jnp.asarray(logits, jnp.bfloat16), jnp.asarray(targets)))
+    np.testing.assert_allclose(cycled, want, rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bce_logits_gradient_is_sigmoid_minus_label_at_every_logit(dtype):
     """At a logit of exactly 0 too, where a clamp's gradient is 1 instead of

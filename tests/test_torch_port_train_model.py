@@ -29,6 +29,7 @@ from tpu_mslesseg.model.yolo11 import create_model as j_create
 from tpu_mslesseg_torch.model import bridge
 from tpu_mslesseg_torch.model.blocks import Conv as TConv
 from tpu_mslesseg_torch.model.yolo11 import create_model as t_create
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _conv_case(seed, c1, c2, k, s, n, hw, act=True):

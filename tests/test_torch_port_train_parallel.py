@@ -56,16 +56,7 @@ from tpu_mslesseg_torch.train import fold_parallel as tfp
 from tpu_mslesseg_torch.train import trainer as ttrainer
 from tpu_mslesseg_torch.train import validate as tval
 from tpu_mslesseg_torch.train.trainer import TrainConfig as TConfig
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread here: the suite runs several test processes at
-    once, and each torch process's own thread pool would contend for the
-    same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 OPTS = dict(epochs=4, batch_size=8, imgsz=64, max_fg=8, close_mosaic=2, save_period=1,

@@ -29,6 +29,7 @@ from tpu_mslesseg_torch.train import checkpoint as tckpt
 from tpu_mslesseg_torch.train import engine as tengine
 from tpu_mslesseg_torch.train import plots
 from tpu_mslesseg_torch.train.trainer import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 CURVES = {f"{k}{c}.png" for k in ("Box", "Mask")
           for c in ("P_curve", "R_curve", "F1_curve", "PR_curve")}

@@ -50,6 +50,7 @@ from tpu_mslesseg.train import trainer as jtr
 from tpu_mslesseg_torch.model import bridge
 from tpu_mslesseg_torch.model.yolo11 import create_model as t_create
 from tpu_mslesseg_torch.train import trainer as ttr
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, B, M, SPE = 64, 2, 4, 2
 BASE = dict(epochs=2, batch_size=B, imgsz=S, max_fg=8)

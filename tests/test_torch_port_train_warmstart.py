@@ -28,6 +28,7 @@ from tpu_mslesseg_torch.model import import_pt as timp
 from tpu_mslesseg_torch.model.bridge import state_dict_from_reference
 from tpu_mslesseg_torch.model.yolo11 import create_model as t_create
 from tpu_mslesseg_torch.train import trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}
 

@@ -11,6 +11,17 @@ budget, ``DEFAULT_FRACTION`` of what ``torch.cuda.mem_get_info`` reports
 free, and the answer is kept in a cache file keyed on the card, the model
 and the dataset, so later folds and runs skip the probe.
 
+``TPU_MSLESSEG_HBM_BYTES``, as in the reference, sets the card's usable
+bytes in place of what the card reports. The budget is then
+``DEFAULT_FRACTION`` of that override less what the process already holds
+(``torch.cuda.memory_allocated``, the base the probes' peaks are measured
+above), and never more than ``mem_get_info`` reports free. The override is
+part of the cache key, so a run with another override probes again. A value
+that is not an integer raises ``ValueError``, as the reference's ``int(env)``
+does, on the CPU too. A valid override does not reach the CPU's batch: the
+CPU has no peak to read, so it keeps ``DEFAULT_BATCH``, where the reference
+solves its compile's peaks against the override (ROADMAP C).
+
 Over a data axis of ``n_data`` ranks, each with its own card, the answer is
 the batch one card holds times ``n_data`` (each rank takes its share of
 it), as the reference scales its per-device batch. On the CPU (asked for by
@@ -35,6 +46,7 @@ logger = get_logger(__file__)
 DEFAULT_BATCH = 32  # the CPU's batch
 DEFAULT_FRACTION = float(os.environ.get("TPU_MSLESSEG_AUTOBATCH_FRACTION", "0.6"))
 PROBES = (8, 16)
+HBM_ENV = "TPU_MSLESSEG_HBM_BYTES"
 
 
 def cache_path() -> Path:
@@ -77,15 +89,22 @@ def _cache_store(key: str, value: int) -> None:
         pass  # the cache saves probes; it is never a failure
 
 
+def hbm_override() -> int | None:
+    """The card's usable bytes that ``TPU_MSLESSEG_HBM_BYTES`` sets, or None
+    where it is unset or empty; a value that is not an integer raises."""
+    env = os.environ.get(HBM_ENV)
+    return int(env) if env else None
+
+
 def cache_key(card: str, total: int, model, cfg, acfg, fraction: float, max_batch: int,
-              train_bytes: int) -> str:
-    """The cache entry of one resolution: the card and its memory, the model's
-    scale and rematerialisation (the probe measures the model as built, and
-    remat lowers its peak), the sizes that the peak grows with, the budget and
-    the dataset that stays on the card."""
+              train_bytes: int, override: int | None = None) -> str:
+    """The cache entry of one resolution: the card, its memory and the
+    override of it, the model's scale and rematerialisation (the probe
+    measures the model as built, and remat lowers its peak), the sizes that
+    the peak grows with, the budget and the dataset that stays on the card."""
     return "|".join(str(v) for v in (
-        card, total, model.cfg.scale, model.remat, cfg.imgsz, acfg.max_inst, cfg.max_fg,
-        cfg.amp, fraction, max_batch, train_bytes))
+        card, total, override, model.cfg.scale, model.remat, cfg.imgsz, acfg.max_inst,
+        cfg.max_fg, cfg.amp, fraction, max_batch, train_bytes))
 
 
 def probe_peak(model, cfg, train_set, acfg, batch_size: int, device) -> int:
@@ -126,29 +145,38 @@ def auto_batch_size(model, cfg, train_set, acfg, n_data: int = 1,
                     device="cuda") -> int:
     """Resolve ``batch=-1`` for `model` training on `train_set` on `device`,
     for a batch split over `n_data` such devices."""
+    override = hbm_override()
     dev = torch.device(device)
     if dev.type == "cpu":
         logger.info(f"🤖 batch=-1 en la CPU: batch={DEFAULT_BATCH} x {n_data}.")
         return DEFAULT_BATCH * n_data
     free, total = torch.cuda.mem_get_info(dev)
     key = cache_key(torch.cuda.get_device_name(dev), total, model, cfg, acfg, fraction,
-                    max_batch, train_set.nbytes())
+                    max_batch, train_set.nbytes(), override)
     cached = _cache_load().get(key)
     if cached is not None:
         logger.info(f"🤖 batch=-1 (cacheado): {cached} por GPU x {n_data}.")
         return int(cached) * n_data
 
+    held = None if override is None else torch.cuda.memory_allocated(dev)
     peaks = [probe_peak(model, cfg, train_set, acfg, b, dev) for b in PROBES]
     # the peaks are above what is already allocated, so the budget is a
-    # share of what is free
-    budget = int(free * fraction)
+    # share of what is free, or of the override less what is held
+    if override is None:
+        budget = int(free * fraction)
+        of = f"{fraction:.0%} de {free / 2**30:.1f} GiB libres"
+    else:
+        budget = min(int(override * fraction) - held, free)
+        of = (f"{fraction:.0%} de {HBM_ENV}={override} ({override / 2**30:.1f} GiB) menos "
+              f"{held / 2**30:.1f} GiB ya ocupados, a lo sumo los {free / 2**30:.1f} GiB libres")
+        logger.info(f"🤖 batch=-1: presupuesto {budget / 2**30:.2f} GiB = {of}.")
     b = solve_max_batch(PROBES[0], peaks[0], PROBES[1], peaks[1], budget, max_batch=max_batch)
     if b is None:
         raise ValueError(
-            f"batch=-1: ningún batch cabe en {fraction:.0%} de {free / 2**30:.1f} GiB libres "
+            f"batch=-1: ningún batch cabe en {of} "
             f"(picos {peaks} @ {PROBES}); reduzca imgsz/escala o fije --batch.")
     per_image = (peaks[1] - peaks[0]) / (PROBES[1] - PROBES[0])
-    logger.info(f"🤖 batch=-1: {free / 2**30:.1f} GiB libres x {fraction:.0%} -> batch {b} "
+    logger.info(f"🤖 batch=-1: {of} -> batch {b} "
                 f"por GPU ({per_image / 2**20:.0f} MiB/imagen) x {n_data}.")
     _cache_store(key, b)
     return b * n_data
